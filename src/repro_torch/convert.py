@@ -1,0 +1,34 @@
+"""Carry the JAX package's MLP parameters across into the port.
+
+The two packages draw different random bits from the same seed (JAX's
+threefry vs ``torch.Generator``), so parity tests hand the reference's
+initial weights to the port instead.  Arrays arrive as numpy (the tests
+convert), which keeps this module free of any JAX import.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+__all__ = ["params_from_jax"]
+
+
+def params_from_jax(params: dict[str, np.ndarray], device=None) -> dict[str, torch.Tensor]:
+    """``{"w0", "b0", "w1", "b1", ...}`` numpy arrays -> stacked fp32 tensors.
+
+    Arrays that already carry a leading population axis (``w0`` of shape
+    ``(P, C, H)``, as ``jax.vmap(qat.init_mlp)`` returns) keep it; a single
+    row's dict (``w0`` of shape ``(C, H)``) becomes a population of one.
+    """
+    dev = resolve_device(device)
+    single = np.ndim(params["w0"]) == 2
+    out = {}
+    for name, a in params.items():
+        a = np.array(a, np.float32)  # a writable copy
+        if single:
+            a = a[None]
+        out[name] = torch.as_tensor(a).to(dev).contiguous()
+    return out

@@ -1,0 +1,1 @@
+"""Core modules of the port: ADC twin, QAT, trainer, genome, area, NSGA-II, co-design."""
