@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py             # build, check every kernel, run the co-design slice
-    python3 chip_smoke.py --profile   # also profile 20 training steps (trace to chiprun_out/)
+    python3 chip_smoke.py             # build, check every kernel, run both slices
+    python3 chip_smoke.py --profile   # also profile 20 training steps, 4 yi-9b decode
+                                      # steps and a prefill (traces to chiprun_out/)
 
 Phases, one JSON line each; any failure ends the run with a nonzero exit:
 
-1. device     the card's name, count, power limit.
-2. build      the kernels, built with nvcc for sm_90a from the repository's sources.
-3. kernels    K2 (forward) and K3 (backward) of the fused pruned-ADC QAT layer
-              against their plain PyTorch versions on the card, at the main
-              path's shapes (P=24 rows, C=21 inputs, F=5 hidden, B=128 and
-              the 638-sample test set) and at the comparator edge cases; times
-              by CUDA events.
-4. placement  a row trained alone and inside a batch of 24 gives the same bits;
-              two runs of one batch give the same bits.
-5. parity     8 cardio genomes from one draw, on the card and through the
-              port's CPU plain path, 600 steps: the per-row accuracy gap must
-              stay within the bound measured on the CPU against the JAX package.
-6. slice      ``run_codesign`` on cardio at full width (pop 24, 600 steps, 4-bit
-              ADCs), 2 generations, with the kernels' launch counts read from
-              that run alone.
+1. device       the card's name, count, power limit.
+2. build        every kernel library, built with nvcc for sm_90a from the
+                repository's sources, one nvcc per source, all at once.
+3. kernels      K2 (forward) and K3 (backward) of the fused pruned-ADC QAT layer
+                against their plain PyTorch versions on the card, at the main
+                path's shapes (P=24 rows, C=21 inputs, F=5 hidden, B=128 and
+                the 638-sample test set) and at the comparator edge cases; times
+                by CUDA events.
+4. placement    a row trained alone and inside a batch of 24 gives the same bits;
+                two runs of one batch give the same bits.
+5. parity       8 cardio genomes from one draw, on the card and through the
+                port's CPU plain path, 600 steps: the per-row accuracy gap must
+                stay within the bound measured on the CPU against the JAX package.
+6. slice        ``run_codesign`` on cardio at full width (pop 24, 600 steps, 4-bit
+                ADCs), 2 generations, with the kernels' launch counts read from
+                that run alone.
+7. attn_kernels K4 (flash attention) and K5 (flash-decode) against their plain
+                versions in bf16 and fp32, at yi-9b's prefill and decode shapes
+                and at the edge shapes of the CPU sweep; times by CUDA events
+                beside the plain version, SDPA (the library yardstick) and the
+                bound.
+8. lm_parity    reduced yi-9b in fp32, one set of seed-drawn parameters on the
+                card and on the port's CPU path: ``serve.run`` tokens equal,
+                prefill and decode logits within the fp32 bound.
+9. lm_slice     yi-9b at full width and depth in bf16: prefill of 4096 tokens and
+                ``serve.run`` of 8 staggered requests, with the K4 and K5 launch
+                counts read from that run alone (48 a prefill, 48 a decode step);
+                then decode-vs-prefill consistency on a 64-token prompt and
+                scheduling independence (a second run without arrival steps).
 
 The last three lines are the card's name and power limit, the kernels'
 summary, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -40,9 +55,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 # Per-row |acc_card - acc_cpu| bound for the parity phase: the largest
 # per-row gap between the port's CPU path and the JAX package measured at
@@ -90,6 +107,27 @@ def device_ms(torch, fn, n: int = 50, repeats: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(torch, fn, kernel: str, n: int = 20) -> float:
+    """Median device time, in ms, of the kernel named ``kernel`` over n calls
+    of ``fn``, from the profiler's device events.  For a wrapper that reads an
+    input on the host before it launches (K5 checks kv_len), so the stream
+    cannot be kept busy and CUDA events would time the host's round trip too.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if len(times) != n:
+        raise SystemExit(f"the profiler saw {len(times)} launches of {kernel}, not {n}")
+    return statistics.median(times) / 1e3
+
+
 def kernel_inputs(torch, B: int, seed: int):
     """Random (P, B, C) inputs and per-row banks with the comparator edge cases."""
     import numpy as np
@@ -127,8 +165,12 @@ def bound_ms(B: int, backward: bool) -> tuple[float, str]:
         reads += P * F * 4                           # bias
         writes = P * B * F * 4
         ops = bank_ops + 2 * P * B * C * F
-    t_bytes = (reads + writes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS * 1e3
+    return roofline(reads + writes, ops, FP32_FLOPS)
+
+
+def roofline(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate and ops over ``peak``, in ms, and which."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -293,10 +335,34 @@ def phase_slice(torch):
     return launches
 
 
-def phase_profile(torch):
-    """Device time by kernel over 20 training steps of 24 cardio rows."""
+def _profiled(torch, fn, trace: str) -> dict:
+    """Run ``fn`` once under the profiler: wall time, device busy time, the
+    device's idle share of the window and the kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    OUT.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(OUT / trace))
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:80], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+    device_us = sum(v[1] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
+    return dict(wall_s=wall, device_busy_us=device_us,
+                device_idle_share=1.0 - device_us / (wall * 1e6),
+                kernel_launches=sum(v[0] for v in kernels.values()),
+                top=[{"name": n, "launches": c, "device_us": us} for n, (c, us) in top])
+
+
+def phase_profile(torch):
+    """Device time by kernel over 20 training steps of 24 cardio rows."""
     from repro_torch.core import qat, trainer
 
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
@@ -306,25 +372,383 @@ def phase_profile(torch):
     params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
     run(*rows, params0, idx)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    emit("profile", steps=20, rows=P,
+         **_profiled(torch, lambda: run(*rows, params0, idx), "profile_20_steps.json"))
+
+
+# ---------------------------------------------------------------------------
+# the LM serving slice: K4, K5 and yi-9b
+# ---------------------------------------------------------------------------
+
+# Kernel-vs-plain bounds on the card: the reference's own kernel-vs-oracle
+# tolerances (tests/test_kernels_{flash,decode}_attn.py).  fp32: sums in
+# another order; bf16: both round the fp32 result to bf16 (2^-8 relative).
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+
+# Card vs the port's CPU path on reduced yi-9b in fp32 (TF32 off): the bound
+# of tests/test_torch_serving.py for the port against the JAX package, whose
+# measured gap there was 3.6e-6.
+LM_PARITY_TOL = 1e-4
+
+# Decode vs prefill at full width in bf16: the decode logits must lie within
+# DECODE_FLOOR_FACTOR times the bf16 prefill's own distance from an fp32
+# evaluation of the same weights, measured in the same run.  Both bf16 paths
+# round the same fp32 function at other places (another GEMM shape); a
+# decode that attends to a wrong position or a stale cache lands O(1) away.
+DECODE_FLOOR_FACTOR = 3.0
+
+YI_PREFILL = (1, 4096, 4096, 32, 4, 128, True)    # B, Sq, Sk, Hq, Hkv, d, causal
+FLASH_EDGES = [
+    (1, 128, 128, 4, 4, 64, True),    # MHA causal
+    (2, 96, 96, 8, 2, 32, True),      # GQA, ragged q/k tile edge
+    (1, 64, 192, 4, 4, 64, False),    # cross-attention shape
+    (2, 256, 256, 6, 2, 128, True),   # internvl2-like head ratio
+    (1, 80, 80, 4, 4, 80, True),      # odd head_dim
+    (1, 200, 200, 8, 1, 256, True),   # widest head dim, one KV head
+]
+YI_DECODE = (4, 32, 4, 4096, 128)                  # B, Hq, Hkv, S, d
+DECODE_EDGES = [
+    (1, 8, 8, 128, 64),      # MHA
+    (2, 8, 2, 513, 64),      # GQA, ragged tile edge
+    (2, 64, 8, 1024, 128),   # command-r-like heads
+    (1, 32, 8, 777, 160),    # mistral-nemo-like head dim
+    (3, 16, 16, 96, 80),     # zamba2-like
+]
+
+
+def flash_bound(torch, B, Sq, Sk, Hq, Hkv, d, causal, dtype) -> tuple[float, str]:
+    """Least time of one K4 call: q, k, v read and out written once vs the
+    products' FLOPs (causal: only the pairs with k <= q) at the type's peak."""
+    nbytes = (2 * B * Sq * Hq * d + 2 * B * Sk * Hkv * d) * dtype.itemsize
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    return roofline(nbytes, 4 * B * Hq * d * pairs, peak)
+
+
+def decode_bound(torch, B, Hq, Hkv, S, d, kv_len, dtype) -> tuple[float, str]:
+    """Least time of one K5 call: the K/V rows up to kv_len, q, out and kv_len
+    moved once vs the products' FLOPs over those rows at the type's peak."""
+    rows = int(kv_len.clamp(max=S).sum())
+    nbytes = (2 * B * Hq * d + 2 * rows * Hkv * d) * dtype.itemsize + 4 * B
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    return roofline(nbytes, 4 * Hq * d * rows, peak)
+
+
+def _close(torch, out, ref, dtype_name: str) -> tuple[float, bool]:
+    tol = ATTN_TOL[dtype_name]
+    err = float((out.float() - ref.float()).abs().max())
+    return err, bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol))
+
+
+def phase_attn_kernels(torch):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn import ref as dref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn import ref as fref
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {"flash_attention": {}, "decode_attention": {}}
+    errs = {"flash_attention": [], "decode_attention": []}
+
+    def rn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for shape in (YI_PREFILL, *FLASH_EDGES):
+            B, Sq, Sk, Hq, Hkv, d, causal = shape
+            q, k, v = rn(B, Sq, Hq, d, dtype=dtype), rn(B, Sk, Hkv, d, dtype=dtype), rn(
+                B, Sk, Hkv, d, dtype=dtype)
+            n0 = fops.LAUNCHES["flash_attention"]
+            out = fops.flash_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            counted = fops.LAUNCHES["flash_attention"] - n0 == 1
+            err, ok = _close(torch, out, fref.flash_attention_ref(q, k, v, causal), dname)
+            rec = {"kernel": "flash_attention", "dtype": dname, "shape": list(shape),
+                   "max_abs_err": err, "tol": ATTN_TOL[dname]}
+            if shape == YI_PREFILL:
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                bms, by = flash_bound(torch, *shape, dtype)
+                rec.update(
+                    ms=device_ms(torch, lambda: fops.flash_attention(q, k, v, causal), 3, 3),
+                    plain_ms=device_ms(
+                        torch, lambda: fref.flash_attention_ref(q, k, v, causal), 3, 3),
+                    library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=causal, enable_gqa=True), 10, 3),
+                    bound_ms=bms, bound_by=by,
+                    bound_ms_fp32_cuda_cores=flash_bound(torch, *shape, torch.float32)[0]
+                    if dtype == torch.bfloat16 else None)
+                res["flash_attention"][dname] = rec
+            errs["flash_attention"].append(err)
+            emit("attn_kernels", **rec, launch_counted=counted, ok=ok and counted)
+            if not (ok and counted):
+                raise SystemExit(f"K4 disagrees with its plain version: {rec}")
+
+        cases = [(YI_DECODE, "ragged")] + [(s, "ragged") for s in DECODE_EDGES] + [
+            ((2, 8, 4, 512, 64), "full"), ((2, 4, 2, 300, 64), "one"),
+            ((2, 16, 4, 700, 128), "strided")]
+        for shape, kind in cases:
+            B, Hq, Hkv, S, d = shape
+            q = rn(B, Hq, d, dtype=dtype)
+            if kind == "strided":  # caches as views of a (B, Hkv, S, d) buffer
+                k = rn(B, Hkv, S, d, dtype=dtype).transpose(1, 2)
+                v = rn(B, Hkv, S, d, dtype=dtype).transpose(1, 2)
+            else:
+                k, v = rn(B, S, Hkv, d, dtype=dtype), rn(B, S, Hkv, d, dtype=dtype)
+            if kind == "full":
+                kv_len = torch.full((B,), S, dtype=torch.int32, device="cuda")
+            elif kind == "one":
+                kv_len = torch.ones(B, dtype=torch.int32, device="cuda")
+            else:
+                kv_len = torch.randint(1, S + 1, (B,), generator=gen, device="cuda",
+                                       dtype=torch.int32)
+                if shape == YI_DECODE:
+                    kv_len[0], kv_len[1] = S, 1  # both ends of [1, S]
+            n0 = dops.LAUNCHES["decode_attention"]
+            out = dops.decode_attention(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            counted = dops.LAUNCHES["decode_attention"] - n0 == 1
+            err, ok = _close(torch, out, dref.decode_attention_ref(q, k, v, kv_len), dname)
+            rec = {"kernel": "decode_attention", "dtype": dname, "shape": list(shape),
+                   "cache": kind, "kv_len": kv_len.tolist(), "max_abs_err": err,
+                   "tol": ATTN_TOL[dname]}
+            if shape == YI_DECODE:
+                mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
+                q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+                bms, by = decode_bound(torch, *shape, kv_len, dtype)
+                rec.update(
+                    ms=kernel_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len),
+                                 "decode_attn_kernel"),
+                    wrapper_ms=device_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len)),
+                    plain_ms=device_ms(
+                        torch, lambda: dref.decode_attention_ref(q, k, v, kv_len)),
+                    library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                        q4, kt, vt, attn_mask=mask, enable_gqa=True)),
+                    bound_ms=bms, bound_by=by)
+                res["decode_attention"][dname] = rec
+            errs["decode_attention"].append(err)
+            emit("attn_kernels", **rec, launch_counted=counted, ok=ok and counted)
+            if not (ok and counted):
+                raise SystemExit(f"K5 disagrees with its plain version: {rec}")
+    for kname, e in errs.items():
+        res[kname]["max_abs_err"] = max(e)
+    return res
+
+
+SERVE_PARITY = dict(arch="yi-9b", reduced=True, max_batch=2, max_len=32, n_requests=4,
+                    prompt_len=4, gen_len=6, seed=0, arrival_steps=(0, 0, 2, 24))
+
+
+def phase_lm_parity(torch):
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_cache
+
+    model = build_model(registry.reduced(registry.get("yi-9b")))
+    params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
+    params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
+    served = {dev: serve.run(serve.ServeConfig(**SERVE_PARITY, device=dev), params=params[dev])
+              for dev in ("cuda", "cpu")}
+    fields = ("requests", "decode_steps", "peak_active", "first_token_step", "finish_step")
+    served_equal = all(served["cuda"][f] == served["cpu"][f] for f in fields)
+
+    B, S = 2, 12
+    tokens = np.random.default_rng(0).integers(0, model.cfg.vocab_size, (B, S)).astype(np.int32)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        tok = torch.from_numpy(tokens).to(dev)
+        with torch.inference_mode():
+            full, cache = model.prefill(params[dev], tok)
+            c = init_cache(model.cfg, B, S, dev)
+            kv_len = torch.zeros(B, dtype=torch.int32, device=dev)
+            steps = []
+            for t in range(S):
+                lg, c = model.decode_step(params[dev], tok[:, t], c, kv_len)
+                kv_len = kv_len + 1
+                steps.append(lg)
+        logits[dev] = (full.cpu(), torch.stack(steps, 1).cpu(), cache["k"].cpu(), c["k"].cpu())
+    gaps = [float((a - b).abs().max()) for a, b in zip(logits["cuda"], logits["cpu"])]
+    close = all(torch.allclose(a, b, rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL)
+                for a, b in zip(logits["cuda"], logits["cpu"]))
+    top2 = logits["cpu"][1][..., : model.cfg.vocab_size].topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    ok = served_equal and close
+    emit("lm_parity", arch="yi-9b (reduced, fp32)", served_equal=served_equal,
+         tokens_card=served["cuda"]["requests"], tokens_cpu=served["cpu"]["requests"],
+         max_abs_gap={"prefill_logits": gaps[0], "decode_logits": gaps[1],
+                      "prefill_cache_k": gaps[2], "decode_cache_k": gaps[3]},
+         tol=LM_PARITY_TOL, min_top2_margin_decode=margin,
+         near_tie=margin <= 2 * max(gaps), ok=ok)
+    if not ok:
+        raise SystemExit("the card's reduced yi-9b leaves the port's CPU path")
+
+
+def _count_calls(module, name: str, counts: dict):
+    """Wrap ``module.name`` so each call adds one to ``counts[name]``; returns the original."""
+    orig = getattr(module, name)
+
+    def counted(*a, **kw):
+        counts[name] += 1
+        return orig(*a, **kw)
+
+    setattr(module, name, counted)
+    return orig
+
+
+def phase_lm_slice(torch, profile: bool = False):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, exact_n_params, transformer
+
+    cfg = registry.get("yi-9b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    torch.cuda.reset_peak_memory_stats()
+    serve_cfg = serve.ServeConfig(
+        arch="yi-9b", reduced=False, max_batch=4, max_len=4096, n_requests=8, prompt_len=64,
+        gen_len=32, arrival_steps=(0, 0, 0, 0, 8, 16, 24, 32), device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 4096), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    calls = {"prefill": 0, "decode_step": 0}
+    originals = {n: _count_calls(transformer, n, calls) for n in calls}
+    try:
+        # -- the main path: counts set to 0 just before, read just after
+        fops.reset_launch_counts()
+        dops.reset_launch_counts()
+        prefill_ms = []
+        with torch.inference_mode():
+            for _ in range(2):  # the first call includes cuBLAS's set-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = model.prefill(params, tokens)
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            prefill_finite = bool(torch.isfinite(logits).all())
+            del logits
         t0 = time.perf_counter()
-        run(*rows, params0, idx)
+        out = serve.run(serve_cfg, params=params)
+        serve_s = time.perf_counter() - t0
+        launches = {**fops.LAUNCHES, **dops.LAUNCHES}
+        main_calls = dict(calls)
+    finally:
+        for n, f in originals.items():
+            setattr(transformer, n, f)
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.inference_mode():
+        # -- decode-step time at the serving batch, 64 positions in
+        c = transformer.init_cache(cfg, 4, 4096, "cuda")
+        kv_len = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+        tok = tokens[0, :4].contiguous()
+        model.decode_step(params, tok, c, kv_len)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    OUT.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(OUT / "profile_20_steps.json"))
-    kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name[:80], [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us()
-    device_us = sum(v[1] for v in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
-    emit("profile", steps=20, rows=P, wall_s=wall, device_busy_us=device_us,
-         device_idle_share=1.0 - device_us / (wall * 1e6), kernel_launches=sum(
-             v[0] for v in kernels.values()),
-         top=[{"name": n, "launches": c, "device_us": us} for n, (c, us) in top])
+        t0 = time.perf_counter()
+        for i in range(16):
+            model.decode_step(params, tok, c, kv_len + i)
+        torch.cuda.synchronize()
+        decode_step_ms = (time.perf_counter() - t0) / 16 * 1e3
+        if profile:
+            def four_steps():
+                for i in range(4):
+                    model.decode_step(params, tok, c, kv_len + 16 + i)
+
+            emit("lm_profile", what="4 decode steps, B=4, 80 positions in",
+                 **_profiled(torch, four_steps, "profile_yi9b_decode.json"))
+            emit("lm_profile", what="prefill of 4096 tokens, B=1",
+                 **_profiled(torch, lambda: model.prefill(params, tokens),
+                             "profile_yi9b_prefill.json"))
+        del c
+
+        # -- decode vs prefill on a 64-token prompt, against an fp32 floor
+        prompt = tokens[:, :64]
+        pre, _ = model.prefill(params, prompt)
+        c = transformer.init_cache(cfg, 1, 64, "cuda")
+        kv_len = torch.zeros(1, dtype=torch.int32, device="cuda")
+        dec = []
+        for t in range(64):
+            lg, c = model.decode_step(params, prompt[:, t], c, kv_len)
+            kv_len = kv_len + 1
+            dec.append(lg)
+        dec = torch.stack(dec, 1).float()
+        del c
+        params32 = {k: v.float() for k, v in params.items()}
+        f32, _ = transformer.prefill(params32, prompt, cfg)
+        del params32
+        pre = pre.float()
+    gap = float((dec - pre).abs().max())
+    floor = float((pre - f32).abs().max())
+    dec_vs_f32 = float((dec - f32).abs().max())
+    V = cfg.vocab_size
+    argmax_agree = float((dec[..., :V].argmax(-1) == pre[..., :V].argmax(-1)).float().mean())
+    consistent = gap <= DECODE_FLOOR_FACTOR * floor
+
+    # -- scheduling independence: the same requests all at once
+    again = serve.run(dataclasses.replace(serve_cfg, arrival_steps=()), params=params)
+    same_tokens = again["requests"] == out["requests"]
+
+    want = {"flash_attention": cfg.n_layers * main_calls["prefill"],
+            "decode_attention": cfg.n_layers * main_calls["decode_step"]}
+    n_dec = main_calls["decode_step"]
+    checks = {
+        "prefill_logits_finite": prefill_finite,
+        "every_request_done": all(len(t) == serve_cfg.gen_len for t in out["requests"].values()),
+        "tokens_in_vocab": all(0 <= x < V for t in out["requests"].values() for x in t),
+        "launch_counts": launches == want and n_dec > 0 and main_calls["prefill"] > 0,
+        "decode_matches_prefill": consistent,
+        "scheduling_independent": same_tokens,
+    }
+    emit("lm_slice", arch="yi-9b", dtype=cfg.dtype, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_params=exact_n_params(cfg), param_bytes=n_bytes,
+         init_s=init_s, peak_memory_bytes=peak, prefill_tokens=tokens.shape[1],
+         prefill_ms=prefill_ms, serve=dataclasses.asdict(serve_cfg), serve_s=serve_s,
+         decode_calls=n_dec, serve_ms_per_decode_call=serve_s / n_dec * 1e3,
+         decode_step_ms_b4=decode_step_ms, tokens_generated=out["tokens_generated"],
+         tokens_per_s=out["tokens_per_s"], decode_steps=out["decode_steps"],
+         peak_active=out["peak_active"], first_token_step=out["first_token_step"],
+         finish_step=out["finish_step"], calls=main_calls, launches=launches,
+         expected_launches=want, decode_vs_prefill_max_abs=gap,
+         prefill_bf16_vs_fp32_max_abs=floor, decode_bf16_vs_fp32_max_abs=dec_vs_f32,
+         decode_tol=DECODE_FLOOR_FACTOR * floor, argmax_agreement=argmax_agree,
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"lm_slice checks failed: {checks}")
+    return launches
+
+
+def build_all(torch) -> None:
+    """Build every kernel library at once: one nvcc per source, in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.fused_qat import ops as qops
+
+    def timed(build):
+        t0 = time.perf_counter()
+        so = build()
+        return str(so.relative_to(ROOT)), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mods = {"fused_qat": qops, "decode_attn": dops, "flash_attn": fops}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futures = {name: pool.submit(timed, m.build) for name, m in mods.items()}
+        built = {name: f.result() for name, f in futures.items()}
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries={n: lib for n, (lib, _) in built.items()},
+         seconds_each={n: s for n, (_, s) in built.items()})
 
 
 def main() -> int:
@@ -335,7 +759,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
-    from repro_torch.kernels.fused_qat import ops
 
     resolve_device("cuda")  # fp32 matmuls: TF32 off
     smi = nvidia_smi()
@@ -343,16 +766,16 @@ def main() -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.perf_counter()
-    so = ops.build()
-    emit("build", seconds=time.perf_counter() - t0, library=str(so.relative_to(ROOT)))
-
+    build_all(torch)
     kern = phase_kernels(torch)
     phase_placement(torch)
     phase_parity(torch)
     launches = phase_slice(torch)
     if "--profile" in sys.argv[1:]:
         phase_profile(torch)
+    attn = phase_attn_kernels(torch)
+    phase_lm_parity(torch)
+    launches.update(phase_lm_slice(torch, profile="--profile" in sys.argv[1:]))
 
     train = kern[128]
     rows = []
@@ -375,8 +798,26 @@ def main() -> int:
             "bound_by": by,
             "library_ms": None,
         })
+    for kname, src, line in (("flash_attention", "flash_attn/csrc/flash_attn.cu",
+                              "src/repro/kernels/flash_attn/flash_attn.py:29"),
+                             ("decode_attention", "decode_attn/csrc/decode_attn.cu",
+                              "src/repro/kernels/decode_attn/decode_attn.py:36")):
+        main_path = attn[kname]["bfloat16"]  # yi-9b's shapes in its dtype
+        rows.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/{src}",
+            "replaces": line,
+            "launches": launches[kname],
+            "max_abs_err": attn[kname]["max_abs_err"],
+            "ms": main_path["ms"],
+            "plain_ms": main_path["plain_ms"],
+            "bound_ms": main_path["bound_ms"],
+            "bound_by": main_path["bound_by"],
+            "library_ms": main_path["library_ms"],
+        })
     if not all(math.isfinite(r["ms"]) and r["launches"] > 0 for r in rows):
-        raise SystemExit(f"a kernel has no time or was not launched on the main path: {rows}")
+        raise SystemExit(f"a kernel has no time or was not launched on its path: {rows}")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

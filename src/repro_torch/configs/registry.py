@@ -1,0 +1,68 @@
+"""Architecture registry: ``--arch <id>`` resolution + reduced smoke configs."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+from repro_torch.configs import (
+    arctic_480b,
+    command_r_35b,
+    internvl2_26b,
+    mistral_nemo_12b,
+    phi35_moe_42b,
+    qwen3_32b,
+    rwkv6_1p6b,
+    whisper_medium,
+    yi_9b,
+    zamba2_2p7b,
+)
+
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c
+    for c in (
+        command_r_35b.CONFIG,
+        yi_9b.CONFIG,
+        qwen3_32b.CONFIG,
+        mistral_nemo_12b.CONFIG,
+        rwkv6_1p6b.CONFIG,
+        arctic_480b.CONFIG,
+        phi35_moe_42b.CONFIG,
+        zamba2_2p7b.CONFIG,
+        internvl2_26b.CONFIG,
+        whisper_medium.CONFIG,
+    )
+}
+
+
+def get(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def reduced(cfg: ModelConfig) -> ModelConfig:
+    """Tiny same-family config for CPU smoke tests (full configs are only
+    exercised shape-wise via the dry-run)."""
+    over: dict = dict(
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=max(cfg.n_kv_heads * 4 // cfg.n_heads, 1),
+        d_ff=128,
+        vocab_size=503,  # deliberately non-multiple of the pad unit
+        dtype="float32",
+        ssm_chunk=8,
+    )
+    if cfg.family == "moe":
+        over.update(n_experts=4, top_k=2, expert_d_ff=96)
+    if cfg.family == "hybrid":
+        over.update(n_layers=4, attn_every=2, ssm_state=16, ssm_head_dim=16)
+    if cfg.family == "ssm":
+        over.update(n_heads=4, n_kv_heads=4)
+    if cfg.family == "vlm":
+        over.update(frontend_len=8)
+    if cfg.family == "audio":
+        over.update(encoder_layers=2, max_target_len=16)
+    return dataclasses.replace(cfg, **over)

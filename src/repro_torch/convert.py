@@ -1,4 +1,4 @@
-"""Carry the JAX package's MLP parameters across into the port.
+"""Carry the JAX package's parameters across into the port.
 
 The two packages draw different random bits from the same seed (JAX's
 threefry vs ``torch.Generator``), so parity tests hand the reference's
@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "lm_params_from_jax"]
 
 
 def params_from_jax(params: dict[str, np.ndarray], device=None) -> dict[str, torch.Tensor]:
@@ -31,4 +32,23 @@ def params_from_jax(params: dict[str, np.ndarray], device=None) -> dict[str, tor
         if single:
             a = a[None]
         out[name] = torch.as_tensor(a).to(dev).contiguous()
+    return out
+
+
+def lm_params_from_jax(params: dict[str, np.ndarray], cfg, device=None) -> dict[str, torch.Tensor]:
+    """A transformer's parameter dict (numpy) -> the port's tensors in ``cfg.dtype``.
+
+    The names and shapes must be those of ``models.transformer.param_specs(cfg)``.
+    Arrays may arrive in fp32 (a bf16 -> fp32 -> bf16 round trip is exact).
+    """
+    dev = resolve_device(device)
+    specs = transformer.param_specs(cfg)
+    if set(params) != set(specs):
+        raise ValueError(f"parameter names differ: {sorted(set(params) ^ set(specs))}")
+    out = {}
+    for name, (shape, _, dtype) in specs.items():
+        a = np.array(params[name], np.float32)  # a writable copy
+        if a.shape != shape:
+            raise ValueError(f"{name} has shape {a.shape}, expected {shape}")
+        out[name] = torch.as_tensor(a).to(device=dev, dtype=transformer.DTYPES[dtype])
     return out

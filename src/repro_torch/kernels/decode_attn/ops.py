@@ -1,0 +1,113 @@
+"""Flash-decode GQA attention: the K5 wrapper.
+
+``decode_attention(q, k_cache, v_cache, kv_len)`` has the signature and
+layout of the JAX package's ``kernels/decode_attn/ops.decode_attention``:
+q (B, Hq, d) one token per row, caches (B, S, Hkv, d) in the model's
+layout, kv_len (B,) int32; returns (B, Hq, d) in q's dtype.
+
+Kernel: ``csrc/decode_attn.cu`` (CUDA C++ for ``sm_90a``; the note at the
+top of that file says what it replaces, what bounds it and how the design
+answers).  Device rule: a tensor on the CPU takes the plain PyTorch version
+in ``ref``; a tensor on CUDA launches the kernel or raises.  There is no
+fallback between the two.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attn import ref
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "build", "decode_attention"]
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "decode_attn.cu"]
+MAX_SHARED_BYTES = 232448  # 227 KB, the most one Hopper block may opt into
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = {"decode_attention": 0}
+
+_vp, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("decode_attn", SOURCES)
+    lib.decode_attn.argtypes = (
+        [_vp] * 5 + [_int] * 5 + [_i64] * 6 + [ctypes.c_float, _int, _vp]
+    )
+    lib.decode_attn.restype = _int
+    lib.decode_attn_shared_bytes.argtypes = [_int, _int]
+    lib.decode_attn_shared_bytes.restype = ctypes.c_size_t
+    lib.decode_attn_error_string.argtypes = [_int]
+    lib.decode_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> Path:
+    """Build (or find) the kernel's shared library; returns its path."""
+    return Path(_lib()._name)
+
+
+def _check(q, k_cache, v_cache, kv_len) -> tuple[int, ...]:
+    """Validate the inputs; returns (B, S, Hkv, G, d)."""
+    if q.ndim != 3 or k_cache.ndim != 4:
+        raise ValueError("q must be (B, Hq, d) and the caches (B, S, Hkv, d)")
+    B, Hq, d = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if tuple(k_cache.shape) != (B, S, Hkv, d) or tuple(v_cache.shape) != (B, S, Hkv, d):
+        raise ValueError(
+            f"caches {tuple(k_cache.shape)}, {tuple(v_cache.shape)} do not fit q {tuple(q.shape)}"
+        )
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} KV heads")
+    if tuple(kv_len.shape) != (B,) or kv_len.dtype != torch.int32:
+        raise ValueError(f"kv_len must be ({B},) int32, got {tuple(kv_len.shape)} {kv_len.dtype}")
+    if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError(
+            f"q/k/v must share one of {list(DTYPES)}: {q.dtype}, {k_cache.dtype}, {v_cache.dtype}"
+        )
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("kv_len", kv_len)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if B and int(kv_len.min()) < 1:
+        raise ValueError("kv_len must be >= 1: an empty cache has no attention output")
+    return B, S, Hkv, Hq // Hkv, d
+
+
+def decode_attention(q, k_cache, v_cache, kv_len) -> torch.Tensor:
+    """One-token GQA attention against a ragged KV cache; K5 on CUDA."""
+    B, S, Hkv, G, d = _check(q, k_cache, v_cache, kv_len)
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, kv_len)
+    if not q.is_contiguous() or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
+        raise ValueError("the kernel takes a contiguous q and caches with unit stride in d")
+    if B < 1 or S < 1 or B > 2**31 - 1 or Hkv > 65535:
+        raise ValueError(f"launch out of range: B={B} S={S} Hkv={Hkv}")
+    lib = _lib()
+    need = lib.decode_attn_shared_bytes(G, d)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"G={G}, d={d} need {need} bytes of shared memory a block")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_attn(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), B, S, Hkv, G, d, *k_cache.stride()[:3], *v_cache.stride()[:3],
+            1.0 / d ** 0.5, DTYPES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_attn launch failed: {lib.decode_attn_error_string(err).decode()}")
+    LAUNCHES["decode_attention"] += 1
+    return out

@@ -1,0 +1,107 @@
+"""Flash-attention forward for prefill: the K4 wrapper.
+
+``flash_attention(q, k, v, causal=True)`` takes the model layout of the JAX
+package's ``kernels/flash_attn/ops.flash_attention_tpu``: q (B, Sq, Hq, d),
+k/v (B, Sk, Hkv, d) with Hq a multiple of Hkv (GQA); returns
+(B, Sq, Hq, d) in q's dtype.
+
+Kernel: ``csrc/flash_attn.cu`` (CUDA C++ for ``sm_90a``; the note at the top
+of that file says what it replaces, what bounds it and how the design
+answers).  Device rule: a tensor on the CPU takes the plain PyTorch version
+in ``ref``; a tensor on CUDA launches the kernel or raises.  There is no
+fallback between the two.  ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attn import ref
+
+__all__ = ["LAUNCHES", "reset_launch_counts", "build", "flash_attention"]
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"]
+MAX_SHARED_BYTES = 232448  # 227 KB, the most one Hopper block may opt into
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = {"flash_attention": 0}
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load_library("flash_attn", SOURCES)
+    lib.flash_attn.argtypes = [_vp] * 4 + [_int] * 7 + [ctypes.c_float, _int, _vp]
+    lib.flash_attn.restype = _int
+    lib.flash_attn_shared_bytes.argtypes = [_int]
+    lib.flash_attn_shared_bytes.restype = ctypes.c_size_t
+    lib.flash_attn_max_head_dim.argtypes = []
+    lib.flash_attn_max_head_dim.restype = _int
+    lib.flash_attn_error_string.argtypes = [_int]
+    lib.flash_attn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> Path:
+    """Build (or find) the kernel's shared library; returns its path."""
+    return Path(_lib()._name)
+
+
+def _check(q, k, v) -> tuple[int, ...]:
+    """Validate the inputs; returns (B, Sq, Sk, Hq, Hkv, d)."""
+    if q.ndim != 4 or k.ndim != 4:
+        raise ValueError("q must be (B, Sq, Hq, d) and k/v (B, Sk, Hkv, d)")
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Sk, Hkv, d) or tuple(v.shape) != (B, Sk, Hkv, d):
+        raise ValueError(f"k {tuple(k.shape)}, v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} KV heads")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share one of {list(DTYPES)}: {q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return B, Sq, Sk, Hq, Hkv, d
+
+
+def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over the whole sequence; K4 on CUDA."""
+    B, Sq, Sk, Hq, Hkv, d = _check(q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the kernel")
+    lib = _lib()
+    if not (1 <= B <= 65535 and 1 <= Hq <= 65535 and Sq >= 1 and Sk >= 1):
+        raise ValueError(f"launch out of range: B={B} Sq={Sq} Sk={Sk} Hq={Hq}")
+    if d > lib.flash_attn_max_head_dim():
+        raise ValueError(f"head dim {d} exceeds the kernel's {lib.flash_attn_max_head_dim()}")
+    need = lib.flash_attn_shared_bytes(d)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"d={d} needs {need} bytes of shared memory a block")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, Hq, Hkv, d, int(causal), 1.0 / d ** 0.5, DTYPES[q.dtype], stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attn launch failed: {lib.flash_attn_error_string(err).decode()}")
+    LAUNCHES["flash_attention"] += 1
+    return out

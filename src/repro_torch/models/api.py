@@ -1,0 +1,63 @@
+"""Unified model API of the port: one entry point per family.
+
+``Model`` bundles what the serving driver and the tests need, as the JAX
+package's ``models/api.Model`` does:
+  * ``param_specs()``     -- {name: (shape, logical_axes, dtype)} (no alloc)
+  * ``init_params(gen)``  -- random tensors on the ``torch.Generator``'s device
+  * ``prefill / decode_step / cache_specs`` -- serving entry points
+
+Only the dense family is ported; ``loss_fn`` comes with the training slice.
+Every other family raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["Model", "build_model", "exact_n_params"]
+
+NOT_PORTED = {
+    "moe": transformer.MOE_TODO,
+    "vlm": transformer.VLM_TODO,
+    "ssm": "the ssm family (rwkv6) is not ported yet: ROADMAP Queue 1 item 11",
+    "hybrid": "the hybrid family (zamba2) is not ported yet: ROADMAP Queue 1 item 12",
+    "audio": "the audio family (whisper) is not ported yet: ROADMAP Queue 1 item 13",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    param_specs: Callable[[], dict]
+    init_params: Callable[[torch.Generator], dict]
+    decode_step: Callable[..., Any]
+    cache_specs: Callable[..., dict]
+    prefill: Callable[..., Any]
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    fam = cfg.family
+    if fam == "dense":
+        return Model(
+            cfg=cfg,
+            param_specs=lambda: transformer.param_specs(cfg),
+            init_params=lambda gen: transformer.init_params(gen, cfg),
+            decode_step=lambda p, t, c, n: transformer.decode_step(p, t, c, n, cfg),
+            cache_specs=lambda batch, max_len: transformer.cache_specs(cfg, batch, max_len),
+            prefill=lambda p, t, pe=None: transformer.prefill(p, t, cfg, pe),
+        )
+    if fam in NOT_PORTED:
+        raise NotImplementedError(NOT_PORTED[fam])
+    raise ValueError(f"unknown family {fam}")
+
+
+def exact_n_params(cfg: ModelConfig) -> int:
+    """Exact parameter count summed from the param specs (no allocation)."""
+    return sum(math.prod(shape) for shape, _, _ in build_model(cfg).param_specs().values())

@@ -1,0 +1,114 @@
+"""Unified model configuration covering every assigned architecture family.
+
+A copy of the JAX package's ``models/config.py`` (plain data, no JAX).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None  # defaults to d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    tie_embeddings: bool = False
+
+    # -- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    top_k: int = 2
+    expert_d_ff: int = 0          # per-expert hidden (arctic: 4864)
+    moe_dense_residual: bool = False  # arctic's parallel dense MLP
+    capacity_factor: float = 1.25
+
+    # -- SSM / RWKV ----------------------------------------------------------
+    ssm_state: int = 0            # mamba2 state dim per head
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 64           # chunked-scan block length
+    chunk_dtype: str = "float32"  # intra-chunk decay/score tensor dtype
+
+    # -- hybrid (zamba2) -----------------------------------------------------
+    attn_every: int = 0           # shared attention block period
+
+    # -- modality stubs (vlm / audio) ----------------------------------------
+    frontend_len: int = 0         # patches / frames in train shapes
+    encoder_layers: int = 0       # whisper encoder depth
+    max_target_len: int = 0       # whisper decoder train length
+
+    # -- numerics / systems ---------------------------------------------------
+    dtype: str = "bfloat16"
+    remat: bool = True
+    use_pruned_frontend: bool = False  # the paper's technique on continuous inputs
+    frontend_adc_bits: int = 4
+    vocab_pad_multiple: int = 256
+    attention_impl: str = "auto"  # auto | plain | flash | pallas (TPU)
+    flash_p_dtype: str = "float32"  # flash-attention probability dtype
+    flash_block_k: int = 2048       # flash-attention KV block length (§Perf C3)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k runs only for sub-quadratic (SSM/hybrid) families."""
+        return self.family in ("ssm", "hybrid")
+
+
+def n_params(cfg: ModelConfig) -> int:
+    """Analytic parameter count (for MODEL_FLOPS = 6*N*D roofline term)."""
+    d, hd = cfg.d_model, cfg.hd
+    q = d * cfg.n_heads * hd
+    kv = 2 * d * cfg.n_kv_heads * hd
+    o = cfg.n_heads * hd * d
+    attn = q + kv + o
+    dense_mlp = 3 * d * cfg.d_ff
+    per_layer = 0
+    if cfg.family in ("dense", "vlm"):
+        per_layer = attn + dense_mlp
+    elif cfg.family == "moe":
+        moe = cfg.n_experts * 3 * d * (cfg.expert_d_ff or cfg.d_ff)
+        per_layer = attn + moe + (dense_mlp if cfg.moe_dense_residual else 0)
+    elif cfg.family == "ssm":  # rwkv6
+        per_layer = 5 * d * d + 3 * d * cfg.d_ff  # r,k,v,g,o + channel-mix
+    elif cfg.family == "hybrid":
+        dim_in = 2 * d + 2 * cfg.n_heads * cfg.ssm_state + cfg.n_heads
+        per_layer = d * dim_in + d * d + 3 * d * cfg.d_ff // 2
+    elif cfg.family == "audio":
+        per_layer = attn + dense_mlp  # decoder; encoder added below
+    emb = cfg.padded_vocab * d * (1 if cfg.tie_embeddings else 2)
+    total = cfg.n_layers * per_layer + emb
+    if cfg.family == "audio":
+        total += cfg.encoder_layers * (attn + dense_mlp)  # encoder stack
+        total += cfg.n_layers * (attn)  # decoder cross-attention
+    if cfg.family == "hybrid" and cfg.attn_every:
+        total += attn  # one shared attention block
+    return int(total)
+
+
+def n_active_params(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k of n_experts)."""
+    if cfg.family != "moe":
+        return n_params(cfg)
+    d = cfg.d_model
+    moe_all = cfg.n_layers * cfg.n_experts * 3 * d * (cfg.expert_d_ff or cfg.d_ff)
+    moe_active = cfg.n_layers * cfg.top_k * 3 * d * (cfg.expert_d_ff or cfg.d_ff)
+    return n_params(cfg) - moe_all + moe_active

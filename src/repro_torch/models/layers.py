@@ -1,0 +1,187 @@
+"""Shared model layers: norms, RoPE, GQA attention (plain + blocked), SwiGLU.
+
+The port of the JAX package's ``models/layers.py``: the same functions, the
+same layouts ((B, S, H, hd) activations) and the bf16/fp32 casts at the same
+places.  These are the plain PyTorch versions; on a CUDA tensor the model
+sends attention to the hand-written kernels instead (``kernels/flash_attn``,
+``kernels/decode_attn``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "NEG_INF",
+    "rms_norm",
+    "rope_frequencies",
+    "rope_angles",
+    "rotate",
+    "apply_rope",
+    "repeat_kv",
+    "plain_attention",
+    "flash_attention",
+    "decode_attention_plain",
+    "swiglu",
+]
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Variance in fp32, the normalise in x's dtype (as the reference)."""
+    var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * scale
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) of the rotary angles, fp32, shaped (..., S, 1, hd/2) for
+    ``rotate``; positions broadcastable to (..., S).  A model computes them
+    once per call and rotates every layer's q and k with them."""
+    freqs = rope_frequencies(head_dim, theta, positions.device)  # (hd/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (..., S, H, hd) by ``rope_angles``; in fp32, cast back."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  Angles in fp32."""
+    return rotate(x, *rope_angles(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, Hkv, d) -> (B, S, Hkv*groups, d) for GQA broadcast."""
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+def plain_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, d)
+    k: torch.Tensor,  # (B, Sk, Hkv, d)
+    v: torch.Tensor,  # (B, Sk, Hkv, d)
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Reference O(S^2)-materialising attention, fp32 scores."""
+    B, Sq, Hq, d = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, d)
+    scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32), k.to(torch.float32))
+    s = s * scale
+    if causal:
+        qpos = torch.arange(Sq, device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return o.reshape(B, Sq, Hq, d).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, d)
+    k: torch.Tensor,  # (B, Sk, Hkv, d)
+    v: torch.Tensor,  # (B, Sk, Hkv, d)
+    causal: bool = True,
+    block_k: int = 1024,
+    q_offset: int = 0,
+    p_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Blocked online-softmax attention: the reference's ``lax.scan`` over KV
+    blocks as a Python loop.  Never materialises the (Sq, Sk) score matrix."""
+    B, Sq, Hq, d = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    k = repeat_kv(k, G)
+    v = repeat_kv(v, G)
+    pad = (-Sk) % block_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    n_blocks = k.shape[1] // block_k
+    scale = 1.0 / (d ** 0.5)
+    qg = (q * scale).transpose(1, 2).to(torch.float32)  # (B, Hq, Sq, d)
+    kb = k.reshape(B, n_blocks, block_k, Hq, d).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, n_blocks, block_k, Hq, d).permute(1, 0, 3, 2, 4)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+
+    m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=q.device)
+    den = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Sq, d), dtype=torch.float32, device=q.device)
+    for j in range(n_blocks):
+        s = torch.einsum("bhqd,bhkd->bhqk", qg, kb[j].to(torch.float32))
+        kpos = j * block_k + torch.arange(block_k, device=q.device)
+        valid = (kpos[None, :] < Sk).expand(Sq, block_k)
+        if causal:
+            valid = valid & (qpos[:, None] >= kpos[None, :])
+        s = s.masked_fill(~valid, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None]).to(p_dtype)
+        alpha = torch.exp(m - m_new)
+        den = den * alpha + p.to(torch.float32).sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(torch.float32), vb[j].to(p_dtype).to(torch.float32)
+        )
+        m = m_new
+    out = acc / torch.clamp(den[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # (B, Hq, d) one token
+    k_cache: torch.Tensor,  # (B, S, Hkv, d)
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,  # (B,)
+) -> torch.Tensor:
+    """Serving decode attention: the reference's ``decode_attention_jnp``."""
+    B, Hq, d = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, Hkv, G, d)
+    scale = 1.0 / (d ** 0.5)
+    s = torch.einsum(
+        "bhgd,bshd->bhgs", qg.to(torch.float32), k_cache.to(torch.float32)
+    ) * scale
+    mask = torch.arange(S, device=q.device)[None, None, None, :] < kv_len[:, None, None, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.to(torch.float32))
+    return o.reshape(B, Hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = torch.matmul(x, w_gate)
+    u = torch.matmul(x, w_up)
+    return torch.matmul(F.silu(g) * u, w_down)

@@ -1,0 +1,291 @@
+"""Dense transformer family (yi, qwen3, command-r, mistral-nemo) for serving.
+
+The port of the JAX package's ``models/transformer.py``, dense family only:
+the same parameter names, shapes and layouts (layer parameters stacked on a
+leading ``n_layers`` axis), the same entry points.  What differs, and why:
+
+* **One card.** ``act_constrain`` and the logical-axis sharding annotations
+  are dropped; the axes stay in ``param_specs`` as data.
+* **Layers run as a Python loop** over the stacked parameters in place of
+  ``lax.scan``, with no remat: the entry points are inference only and run
+  under ``torch.inference_mode()`` (the training slice brings ``loss_fn``).
+* **Attention on a CUDA tensor always goes to the hand-written kernels**:
+  K4 (``kernels/flash_attn``) in ``forward`` and ``prefill``, K5
+  (``kernels/decode_attn``) in ``decode_step``.  ``cfg.attention_impl``
+  chooses among the plain versions only on the CPU, where ``_choose_attn``
+  keeps the reference's meaning ("pallas" takes K4's plain version).
+* **``decode_step`` writes the new k/v into the cache in place** at
+  ``kv_len``, where the reference rebuilds the whole cache with
+  ``jnp.where``: the values are identical (a position past the cache is
+  written nowhere, as there), and a step does not rewrite the cache (1.6 GB
+  for yi-9b at 4 slots x 4096 positions).
+* The MoE branch and the VLM patch branch raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.decode_attn import ops as decode_ops
+from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+__all__ = [
+    "DTYPES",
+    "param_specs",
+    "init_params",
+    "forward",
+    "prefill",
+    "decode_step",
+    "cache_specs",
+    "init_cache",
+]
+
+Specs = dict[str, tuple[tuple[int, ...], tuple[str | None, ...], str]]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+MOE_TODO = "the MoE family (phi3.5-moe, arctic) is not ported yet: ROADMAP Queue 1 item 9"
+VLM_TODO = "the VLM patch frontend on K1 (internvl2-26b) is not ported yet: ROADMAP Queue 1 item 10"
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig) -> Specs:
+    d, hd, nl = cfg.d_model, cfg.hd, cfg.n_layers
+    Hq, Hkv, V = cfg.n_heads, cfg.n_kv_heads, cfg.padded_vocab
+    dt = cfg.dtype
+    s: Specs = {
+        "embed": ((V, d), ("vocab", "embed"), dt),
+        "final_norm": ((d,), (None,), dt),
+        "ln1": ((nl, d), (None, None), dt),
+        "ln2": ((nl, d), (None, None), dt),
+        "wq": ((nl, d, Hq * hd), (None, "embed", "heads"), dt),
+        "wk": ((nl, d, Hkv * hd), (None, "embed", "kv_heads"), dt),
+        "wv": ((nl, d, Hkv * hd), (None, "embed", "kv_heads"), dt),
+        "wo": ((nl, Hq * hd, d), (None, "heads", "embed"), dt),
+    }
+    if not cfg.tie_embeddings:
+        s["lm_head"] = ((d, V), ("embed", "vocab"), dt)
+    if cfg.qk_norm:
+        s["q_norm"] = ((nl, hd), (None, None), dt)
+        s["k_norm"] = ((nl, hd), (None, None), dt)
+    if cfg.family == "moe":
+        eff = cfg.expert_d_ff or cfg.d_ff
+        s["router"] = ((nl, d, cfg.n_experts), (None, "embed", None), "float32")
+        e_in = (None, "experts", "expert_embed", "expert_ffn")
+        e_out = (None, "experts", "expert_ffn", "expert_embed")
+        s["we_gate"] = ((nl, cfg.n_experts, d, eff), e_in, dt)
+        s["we_up"] = ((nl, cfg.n_experts, d, eff), e_in, dt)
+        s["we_down"] = ((nl, cfg.n_experts, eff, d), e_out, dt)
+        if cfg.moe_dense_residual:
+            s["w_gate"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
+            s["w_up"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
+            s["w_down"] = ((nl, cfg.d_ff, d), (None, "ffn", "embed"), dt)
+    else:
+        s["w_gate"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
+        s["w_up"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
+        s["w_down"] = ((nl, cfg.d_ff, d), (None, "ffn", "embed"), dt)
+    if cfg.family == "vlm":
+        s["patch_proj"] = ((d, d), ("embed", "embed_out"), dt)
+    return s
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Random parameters on ``gen``'s device, as the reference draws them.
+
+    fp32 ``normal / sqrt(fan_in)`` cast to the config's dtype, norms set to
+    ones, names in sorted order.  The bits differ from JAX's (another
+    generator); parity tests carry the reference's parameters across with
+    ``convert.lm_params_from_jax``.
+    """
+    params = {}
+    for name, (shape, _, dtype) in sorted(param_specs(cfg).items()):
+        if "norm" in name or name.startswith("ln"):
+            params[name] = torch.ones(shape, dtype=DTYPES[dtype], device=gen.device)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+            params[name] = w.div_(math.sqrt(fan_in)).to(DTYPES[dtype])
+            del w
+    return params
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _attend(q, k, v, cfg: ModelConfig, attn_impl: str):
+    """Full-sequence causal attention: K4 on CUDA, a plain version on the CPU."""
+    if q.is_cuda or attn_impl == "pallas":
+        return flash_ops.flash_attention(q, k, v, causal=True)
+    if attn_impl == "flash":
+        return L.flash_attention(
+            q, k, v, causal=True, p_dtype=DTYPES[cfg.flash_p_dtype], block_k=cfg.flash_block_k
+        )
+    return L.plain_attention(q, k, v, causal=True)
+
+
+def _attention_block(x, lp, cfg: ModelConfig, rope, attn_impl: str):
+    """x: (B, S, d); lp: one layer's params (leading axis stripped); rope:
+    ``layers.rope_angles`` of the positions."""
+    B, S, d = x.shape
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    h = L.rms_norm(x, lp["ln1"])
+    q = torch.matmul(h, lp["wq"]).reshape(B, S, Hq, hd)
+    k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
+    v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, lp["q_norm"])
+        k = L.rms_norm(k, lp["k_norm"])
+    q = L.rotate(q, *rope)
+    k = L.rotate(k, *rope)
+    o = _attend(q, k, v, cfg, attn_impl)
+    o = torch.matmul(o.reshape(B, S, Hq * hd), lp["wo"])
+    return x + o, (k, v)
+
+
+def _mlp(h, lp, cfg: ModelConfig):
+    if cfg.family == "moe":
+        raise NotImplementedError(MOE_TODO)
+    return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def _layer(x, lp, cfg: ModelConfig, rope, attn_impl: str):
+    x, kv = _attention_block(x, lp, cfg, rope, attn_impl)
+    return x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg), kv
+
+
+_LAYER_KEYS = (
+    "ln1", "ln2", "wq", "wk", "wv", "wo", "q_norm", "k_norm",
+    "router", "we_gate", "we_up", "we_down", "w_gate", "w_up", "w_down",
+)
+
+
+def _split_layer_params(params):
+    stacked = {k: v for k, v in params.items() if k in _LAYER_KEYS}
+    rest = {k: v for k, v in params.items() if k not in _LAYER_KEYS}
+    return stacked, rest
+
+
+def _layer_params(stacked, i: int):
+    return {k: v[i] for k, v in stacked.items()}
+
+
+def _choose_attn(cfg: ModelConfig, seq_len: int) -> str:
+    """The plain version the CPU runs (a CUDA tensor always takes K4)."""
+    if cfg.attention_impl != "auto":
+        return cfg.attention_impl
+    return "flash" if seq_len > 8192 else "plain"
+
+
+def _head(x, rest, cfg: ModelConfig):
+    x = L.rms_norm(x, rest["final_norm"])
+    head = rest["embed"].T if cfg.tie_embeddings else rest["lm_head"]
+    return torch.matmul(x, head)
+
+
+# ---------------------------------------------------------------------------
+# forward / prefill (one body) and decode
+# ---------------------------------------------------------------------------
+
+def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: bool):
+    if cfg.family == "vlm" and patch_embeds is not None:
+        raise NotImplementedError(VLM_TODO)
+    stacked, rest = _split_layer_params(params)
+    x = rest["embed"][tokens]  # (B, S, d)
+    B, S = tokens.shape
+    rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
+    attn_impl = _choose_attn(cfg, S)
+    cache = None
+    if keep_cache:
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+        cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
+    for i in range(cfg.n_layers):
+        x, (k, v) = _layer(x, _layer_params(stacked, i), cfg, rope, attn_impl)
+        if keep_cache:
+            cache["k"][i] = k
+            cache["v"][i] = v
+    return _head(x, rest, cfg), cache
+
+
+def forward(params, tokens, cfg: ModelConfig, patch_embeds=None) -> torch.Tensor:
+    """Logits (B, S, V) of a full sequence; tokens (B, S) integer."""
+    return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=False)[0]
+
+
+def prefill(params, tokens, cfg: ModelConfig, patch_embeds=None):
+    """Full-sequence forward that also returns the KV cache.
+
+    Returns (logits (B, S, V), cache {k,v: (L, B, S, Hkv, hd)}).
+    """
+    return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=True)
+
+
+def _decode_attend(q, k_cache, v_cache, kv_len):
+    """One-token attention: K5 on CUDA, the reference's jnp twin on the CPU."""
+    if q.is_cuda:
+        return decode_ops.decode_attention(q, k_cache, v_cache, kv_len)
+    return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
+
+
+def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
+    """One-token decode against a (L, B, Smax, Hkv, hd) KV cache.
+
+    Args:
+      token: (B,) integer current token.
+      cache: {"k","v"}: (L, B, Smax, Hkv, hd); position ``kv_len`` is written
+        in place.
+      kv_len: (B,) int32 current lengths (same for all layers).
+    Returns: (logits (B, V), the same cache dict).
+    """
+    stacked, rest = _split_layer_params(params)
+    B = token.shape[0]
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    Smax = cache["k"].shape[2]
+    x = rest["embed"][token]  # (B, d)
+    pos = kv_len
+    rows = torch.arange(B, device=x.device)
+    # the reference's where-update writes nothing for a row at or past Smax
+    inside = (pos < Smax)[:, None, None]
+    at = pos.clamp(max=Smax - 1)
+    attn_len = pos + 1
+    cos, sin = L.rope_angles(pos[:, None], hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = _layer_params(stacked, i)
+        h = L.rms_norm(x, lp["ln1"])
+        q = torch.matmul(h, lp["wq"]).reshape(B, Hq, hd)
+        k = torch.matmul(h, lp["wk"]).reshape(B, Hkv, hd)
+        v = torch.matmul(h, lp["wv"]).reshape(B, Hkv, hd)
+        if cfg.qk_norm:
+            q = L.rms_norm(q, lp["q_norm"])
+            k = L.rms_norm(k, lp["k_norm"])
+        q = L.rotate(q[:, None], cos, sin)[:, 0]
+        k = L.rotate(k[:, None], cos, sin)[:, 0]
+        kc, vc = cache["k"][i], cache["v"][i]
+        kc[rows, at] = torch.where(inside, k, kc[rows, at])
+        vc[rows, at] = torch.where(inside, v, vc[rows, at])
+        o = _decode_attend(q, kc, vc, attn_len)
+        x = x + torch.matmul(o.reshape(B, Hq * hd), lp["wo"])
+        x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg)
+    return _head(x, rest, cfg), cache
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Specs:
+    hd, Hkv = cfg.hd, cfg.n_kv_heads
+    shape = (cfg.n_layers, batch, max_len, Hkv, hd)
+    axes = (None, "batch", None, "kv_heads", "head_dim")
+    return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict[str, torch.Tensor]:
+    """Zeroed KV caches of ``cache_specs`` on ``device``."""
+    return {
+        n: torch.zeros(shape, dtype=DTYPES[dt], device=device)
+        for n, (shape, _, dt) in cache_specs(cfg, batch, max_len).items()
+    }
