@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py             # build, check every kernel, run both slices
-    python3 chip_smoke.py --profile   # also profile 20 training steps, 4 yi-9b decode
-                                      # steps and a prefill (traces to chiprun_out/)
+    python3 chip_smoke.py             # build, check every kernel, run every slice
+    python3 chip_smoke.py --profile   # also profile 20 training steps, and decode steps
+                                      # and a prefill (or encode) of each served model
+                                      # (gzipped traces to the OUT directory)
 
 Phases, one JSON line each; any failure ends the run with a nonzero exit:
 
@@ -31,11 +32,45 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
 8. lm_parity    reduced yi-9b in fp32, one set of seed-drawn parameters on the
                 card and on the port's CPU path: ``serve.run`` tokens equal,
                 prefill and decode logits within the fp32 bound.
-9. lm_slice     yi-9b at full width and depth in bf16: prefill of 4096 tokens and
+9. frontend_kernel
+                K1 (the pruned flash-ADC comparator bank) against its plain
+                version, tolerance 0, at internvl2-26b's patch shape (4 x 256 x
+                6144) and whisper's frame shape (4 x 1500 x 1024) with all-ones,
+                random and level-0-only masks, at ragged rows and channels, with
+                NaN, +-inf, negative, >= vref and on-threshold inputs; times by
+                the profiler beside the plain version, ``torch.searchsorted``
+                (the library yardstick) and the bound.
+10. mm_attn_kernels
+                K4 and K5 against their plain versions in bf16 at the shapes
+                internvl2-26b (48/8 heads, d 128) and whisper-medium (16/16
+                heads, d 64, non-causal encoder and cross-attention) give them,
+                with q drawn 4x wider than k and v so that the outputs are O(1)
+                (each record gives the reference's RMS beside the error); times
+                beside the plain version, SDPA and the bound.
+11. vlm_parity, audio_parity
+                reduced internvl2-26b and whisper-medium in fp32, one set of
+                seed-drawn parameters on the card and on the port's CPU path:
+                prefill/forward with patches, encode, cross caches, decode and
+                decode_train logits within 1e-4, equal frontend levels and equal
+                greedy tokens.
+12. lm_slice    yi-9b at full width and depth in bf16: prefill of 4096 tokens and
                 ``serve.run`` of 8 staggered requests, with the K4 and K5 launch
                 counts read from that run alone (48 a prefill, 48 a decode step);
                 then decode-vs-prefill consistency on a 64-token prompt and
                 scheduling independence (a second run without arrival steps).
+13. vlm_slice   internvl2-26b at full width and depth in bf16, after yi-9b's
+                weights are released: 4 requests of 256 patches + 64 tokens
+                prefilled (twice), 32 greedy decode steps at B=4, and a 4096-position
+                prefill (256 patches + 3840 tokens) twice, with K1 (1 a prefill
+                with patches), K4 (48 a prefill) and K5 (48 a decode step) counted
+                in that run alone; then the frontend's fixed point at full width
+                (bit-equal logits) and decode-vs-prefill on an 8-layer cut of the
+                same weights against its fp32 floor.
+14. audio_slice whisper-medium at full width and depth in bf16: ``encode`` of 4 x
+                1500 frames (K1 once, K4 24 times), the cross caches, 32 greedy
+                decode steps (K5 48 a step: self and cross), counted in that run
+                alone; then the steps against ``decode_train`` over the same
+                tokens, within 3x its bf16-vs-fp32 floor.
 
 The last three lines are the card's name and power limit, the kernels'
 summary, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -44,8 +79,10 @@ the repository beside it, the script fails and prints no result.
 
 from __future__ import annotations
 
+import gzip
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -346,7 +383,12 @@ def _profiled(torch, fn, trace: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     OUT.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(OUT / trace))
+    # gzipped: uncompressed, the traces of all the slices come to over 60 MB
+    raw = OUT / trace
+    prof.export_chrome_trace(str(raw))
+    with open(raw, "rb") as src, gzip.open(f"{raw}.gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    raw.unlink()
     kernels: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -546,8 +588,7 @@ def phase_lm_parity(torch):
 
     from repro_torch.configs import registry
     from repro_torch.launch import serve
-    from repro_torch.models import build_model
-    from repro_torch.models.transformer import init_cache
+    from repro_torch.models import build_model, init_cache
 
     model = build_model(registry.reduced(registry.get("yi-9b")))
     params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
@@ -564,7 +605,7 @@ def phase_lm_parity(torch):
         tok = torch.from_numpy(tokens).to(dev)
         with torch.inference_mode():
             full, cache = model.prefill(params[dev], tok)
-            c = init_cache(model.cfg, B, S, dev)
+            c = init_cache(model, B, S, dev)
             kv_len = torch.zeros(B, dtype=torch.int32, device=dev)
             steps = []
             for t in range(S):
@@ -607,7 +648,7 @@ def phase_lm_slice(torch, profile: bool = False):
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.launch import serve
-    from repro_torch.models import build_model, exact_n_params, transformer
+    from repro_torch.models import build_model, exact_n_params, init_cache, transformer
 
     cfg = registry.get("yi-9b")
     model = build_model(cfg)
@@ -650,7 +691,7 @@ def phase_lm_slice(torch, profile: bool = False):
 
     with torch.inference_mode():
         # -- decode-step time at the serving batch, 64 positions in
-        c = transformer.init_cache(cfg, 4, 4096, "cuda")
+        c = init_cache(model, 4, 4096, "cuda")
         kv_len = torch.full((4,), 64, dtype=torch.int32, device="cuda")
         tok = tokens[0, :4].contiguous()
         model.decode_step(params, tok, c, kv_len)
@@ -675,7 +716,7 @@ def phase_lm_slice(torch, profile: bool = False):
         # -- decode vs prefill on a 64-token prompt, against an fp32 floor
         prompt = tokens[:, :64]
         pre, _ = model.prefill(params, prompt)
-        c = transformer.init_cache(cfg, 1, 64, "cuda")
+        c = init_cache(model, 1, 64, "cuda")
         kv_len = torch.zeros(1, dtype=torch.int32, device="cuda")
         dec = []
         for t in range(64):
@@ -728,6 +769,541 @@ def phase_lm_slice(torch, profile: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the pruned-ADC frontend slice: K1, internvl2-26b (VLM) and whisper-medium
+# ---------------------------------------------------------------------------
+
+# K1 against its plain version: integer levels, so tolerance 0.
+VLM_PATCHES = (4, 256, 6144)     # 4 images x 256 patch tokens, internvl2-26b's d_model
+AUDIO_FRAMES = (4, 1500, 1024)   # 4 x whisper's 30 s window after its conv stride
+K1_RAGGED = [(1, 6144), (7, 6144), (1025, 6144), (1024, 21), (1024, 6143)]
+# NaN, +-inf, below 0, -0.0, at and above vref
+K1_EDGES = [math.nan, math.inf, -math.inf, -0.5, -0.0, 1.0, 1.5, 7.0]
+
+
+def k1_inputs(torch, shape, mask_kind: str, seed: int):
+    """fp32 x of ``shape`` with every threshold and the edge inputs planted, and a mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    C = shape[-1]
+    x = rng.uniform(-0.1, 1.1, shape).astype(np.float32)
+    flat = x.reshape(-1, C)
+    k = min(flat.shape[0], 16)
+    flat[:k, 0] = np.arange(16, dtype=np.float32)[:k] / 16  # exactly on each comparator
+    for i, e in enumerate(K1_EDGES):
+        flat[-1 - (i % flat.shape[0]), (C // 2 + i) % C] = e
+    if mask_kind == "full":
+        mask = np.ones((C, 16), bool)
+    elif mask_kind == "level0":
+        mask = np.zeros((C, 16), bool)
+    else:
+        mask = rng.uniform(size=(C, 16)) < rng.uniform(0.1, 1.0, (C, 1))
+    return torch.from_numpy(x).to("cuda"), torch.from_numpy(mask).to("cuda")
+
+
+def k1_bound(B: int, C: int, T: int = 15) -> tuple[float, str]:
+    """Least time of one K1 call: x read and the int32 levels written once, the
+    two (C, T) tables read once, vs a compare and a max per comparator at the
+    fp32 peak."""
+    return roofline(8 * B * C + 8 * C * T, 2 * B * C * T, FP32_FLOPS)
+
+
+def phase_frontend_kernel(torch):
+    from repro_torch.kernels.pruned_quant import ops as pq
+    from repro_torch.kernels.pruned_quant import ref as pq_ref
+
+    res = {}
+    cases = [(s, m) for s in (VLM_PATCHES, AUDIO_FRAMES) for m in ("full", "random", "level0")]
+    cases += [(s, "random") for s in K1_RAGGED]
+    max_err = 0
+    for i, (shape, mask_kind) in enumerate(cases):
+        x, mask = k1_inputs(torch, shape, mask_kind, seed=100 + i)
+        n0 = pq.LAUNCHES["pruned_quantize"]
+        out = pq.pruned_quantize(x, mask)
+        torch.cuda.synchronize()
+        counted = pq.LAUNCHES["pruned_quantize"] - n0 == 1
+        thr, ids = pq_ref.make_tables(mask, 4)
+        C = shape[-1]
+        xf = x.reshape(-1, C)
+        want = pq_ref.pruned_quantize_ref(xf, thr, ids).reshape(shape)
+        equal = bool(torch.equal(out, want)) and out.dtype == torch.int32
+        rec = {"kernel": "pruned_quantize", "shape": list(shape), "mask": mask_kind,
+               "max_abs_err": int((out - want).abs().max()), "tol": 0,
+               "levels_seen": int(torch.unique(out).numel())}
+        if mask_kind == "full" and shape in (VLM_PATCHES, AUDIO_FRAMES):
+            B = xf.shape[0]
+            xt = xf.T.contiguous()
+            lib = lambda: torch.searchsorted(thr, xt, right=True, out_int32=True)  # noqa: E731
+            seen = ~torch.isnan(xf)  # searchsorted orders NaN above every threshold
+            sorted_ok = torch.equal(lib().T[seen], want.reshape(-1, C)[seen])
+            bms, by = k1_bound(B, C)
+            rec.update(
+                ms=kernel_ms(torch, lambda: pq.pruned_quantize(x, mask), "pruned_quant_kernel"),
+                wrapper_ms=device_ms(torch, lambda: pq.pruned_quantize(x, mask)),
+                plain_ms=device_ms(torch, lambda: pq_ref.pruned_quantize_ref(xf, thr, ids)),
+                library_ms=device_ms(torch, lib), library_equal_on_finite_inputs=sorted_ok,
+                bound_ms=bms, bound_by=by)
+            res["vlm" if shape == VLM_PATCHES else "audio"] = rec
+        max_err = max(max_err, rec["max_abs_err"])
+        emit("frontend_kernel", **rec, launch_counted=counted, ok=equal and counted)
+        if not (equal and counted):
+            raise SystemExit(f"K1 disagrees with its plain version: {rec}")
+    res["max_abs_err"] = max_err
+    return res
+
+
+# K4 and K5 at the shapes the two new models give them (bf16): (B, Sq, Sk, Hq,
+# Hkv, d, causal) and (B, Hq, Hkv, S, d, kv_len)
+MM_FLASH = {
+    "internvl2 prefill, 256 patches + 3840 tokens": (1, 4096, 4096, 48, 8, 128, True),
+    "internvl2 requests, 4 x (256 + 64)": (4, 320, 320, 48, 8, 128, True),
+    "whisper encode, 4 x 1500 frames": (4, 1500, 1500, 16, 16, 64, False),
+    "whisper decode_train cross, 32 tokens": (4, 32, 1500, 16, 16, 64, False),
+}
+MM_DECODE = {
+    "internvl2 decode, 320-351 positions": (4, 48, 8, 512, 128, (320, 331, 342, 351)),
+    "whisper decode self, 1-32 positions": (4, 16, 16, 448, 64, (1, 11, 22, 32)),
+    "whisper decode cross, 1500 positions": (4, 16, 16, 1500, 64, (1500,) * 4),
+}
+# q is drawn 4x wider than k and v, so the scores have std 4: each row's
+# softmax is led by a few keys and the outputs are O(1) (RMS about 0.5).
+# With unit q the outputs over 1500-4096 keys are softmax averages of RMS
+# 0.03-0.04, as small as ATTN_TOL itself.  On the CPU, the plain version
+# with one key or the last 28-key tile left out lies 0.15-4.5 from the
+# full one at these shapes with this q, against 0.04-0.2 with unit q.
+MM_Q_SCALE = 4.0
+
+
+def phase_mm_attn_kernels(torch):
+    """K4 and K5 against their plain versions at internvl2's and whisper's
+    shapes (head dim 64, one query head a KV head, non-causal), with times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn import ref as dref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn import ref as fref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dtype = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")).to(dtype)
+
+    def rms(t):
+        return float(t.float().pow(2).mean().sqrt())
+
+    res = {}
+    for what, shape in MM_FLASH.items():
+        B, Sq, Sk, Hq, Hkv, d, causal = shape
+        q = rn(B, Sq, Hq, d, scale=MM_Q_SCALE)
+        k, v = rn(B, Sk, Hkv, d), rn(B, Sk, Hkv, d)
+        out = fops.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        want = fref.flash_attention_ref(q, k, v, causal)
+        err, ok = _close(torch, out, want, "bfloat16")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        bms, by = flash_bound(torch, *shape, dtype)
+        n = 3 if Sq * Sk > 10**6 else 20
+        rec = {"kernel": "flash_attention", "what": what, "shape": list(shape),
+               "q_scale": MM_Q_SCALE, "ref_rms": rms(want),
+               "max_abs_err": err, "tol": ATTN_TOL["bfloat16"],
+               "ms": device_ms(torch, lambda: fops.flash_attention(q, k, v, causal), n, 3),
+               "plain_ms": device_ms(
+                   torch, lambda: fref.flash_attention_ref(q, k, v, causal), n, 3),
+               "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True), n, 3),
+               "bound_ms": bms, "bound_by": by}
+        res[what] = rec
+        emit("mm_attn_kernels", **rec, ok=ok)
+        if not ok:
+            raise SystemExit(f"K4 disagrees with its plain version: {rec}")
+    for what, (B, Hq, Hkv, S, d, lens) in MM_DECODE.items():
+        q = rn(B, Hq, d, scale=MM_Q_SCALE)
+        k, v = rn(B, S, Hkv, d), rn(B, S, Hkv, d)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        out = dops.decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        want = dref.decode_attention_ref(q, k, v, kv_len)
+        err, ok = _close(torch, out, want, "bfloat16")
+        mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
+        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        bms, by = decode_bound(torch, B, Hq, Hkv, S, d, kv_len, dtype)
+        rec = {"kernel": "decode_attention", "what": what, "shape": [B, Hq, Hkv, S, d],
+               "kv_len": list(lens), "q_scale": MM_Q_SCALE, "ref_rms": rms(want),
+               "max_abs_err": err, "tol": ATTN_TOL["bfloat16"],
+               "ms": kernel_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len),
+                               "decode_attn_kernel"),
+               "plain_ms": device_ms(torch, lambda: dref.decode_attention_ref(q, k, v, kv_len)),
+               "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q4, kt, vt, attn_mask=mask, enable_gqa=True)),
+               "bound_ms": bms, "bound_by": by}
+        res[what] = rec
+        emit("mm_attn_kernels", **rec, ok=ok)
+        if not ok:
+            raise SystemExit(f"K5 disagrees with its plain version: {rec}")
+    return res
+
+
+def _greedy(torch, model, params, cache, tok, kv_len, n: int, V: int):
+    """n greedy decode steps from ``tok`` at ``kv_len``: the tokens (B, n) and
+    each step's logits (B, n, padded vocab)."""
+    toks, logits = [], []
+    for _ in range(n):
+        lg, cache = model.decode_step(params, tok, cache, kv_len)
+        kv_len = kv_len + 1
+        tok = lg[:, :V].argmax(-1).to(torch.int32)
+        toks.append(tok)
+        logits.append(lg)
+    return torch.stack(toks, 1), torch.stack(logits, 1)
+
+
+def phase_vlm_parity(torch):
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
+    from repro_torch.models import build_model, init_cache, transformer
+
+    model = build_model(registry.reduced(registry.get("internvl2-26b")))
+    cfg = model.cfg
+    params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
+    params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
+    rng = np.random.default_rng(0)
+    B, S, n_new = 2, 6, 8
+    P = cfg.frontend_len
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    pe = rng.uniform(0, 1, (B, P, cfg.d_model)).astype(np.float32)
+    pe[0, 0, :16] = np.arange(16) / 16
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tok, emb = torch.from_numpy(tokens).to(dev), torch.from_numpy(pe).to(dev)
+        with torch.inference_mode():
+            pre, cache = model.prefill(params[dev], tok, emb)
+            fwd = transformer.forward(params[dev], tok, cfg, emb)
+            levels = PrunedQuantFrontend(FrontendConfig(cfg.d_model)).to(dev).levels(emb)
+            c = init_cache(model, B, P + S + n_new, dev)
+            for n in ("k", "v"):
+                c[n][:, :, : P + S] = cache[n]
+            first = pre[:, -1, : cfg.vocab_size].argmax(-1).to(torch.int32)
+            kv_len = torch.full((B,), P + S, dtype=torch.int32, device=dev)
+            toks, dec = _greedy(torch, model, params[dev], c, first, kv_len, n_new,
+                                cfg.vocab_size)
+        out[dev] = [t.cpu() for t in (pre, fwd, cache["k"], dec, levels, toks)]
+    gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+    close = all(torch.allclose(a, b, rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL)
+                for a, b in zip(out["cuda"][:4], out["cpu"][:4]))
+    levels_equal = bool(torch.equal(out["cuda"][4], out["cpu"][4]))
+    tokens_equal = bool(torch.equal(out["cuda"][5], out["cpu"][5]))
+    ok = close and levels_equal and tokens_equal
+    emit("vlm_parity", arch="internvl2-26b (reduced, fp32)", patches=P, tokens=S,
+         max_abs_gap={"prefill_logits": gaps[0], "forward_logits": gaps[1],
+                      "prefill_cache_k": gaps[2], "decode_logits": gaps[3]},
+         tol=LM_PARITY_TOL, frontend_levels_equal=levels_equal,
+         greedy_tokens_card=out["cuda"][5].tolist(), greedy_tokens_equal=tokens_equal, ok=ok)
+    if not ok:
+        raise SystemExit("the card's reduced internvl2 leaves the port's CPU path")
+
+
+WHISPER_SOT = 50258  # whisper's <|startoftranscript|>
+
+
+def phase_audio_parity(torch):
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
+    from repro_torch.models import build_model, init_cache, whisper
+
+    model = build_model(registry.reduced(registry.get("whisper-medium")))
+    cfg = model.cfg
+    params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
+    params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
+    rng = np.random.default_rng(1)
+    B, T, n_new = 2, 12, 8
+    frames = rng.uniform(0, 1, (B, T, cfg.d_model)).astype(np.float32)
+    frames[0, 0, :16] = np.arange(16) / 16
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fr = torch.from_numpy(frames).to(dev)
+        with torch.inference_mode():
+            enc = whisper.encode(params[dev], fr, cfg)
+            levels = PrunedQuantFrontend(FrontendConfig(cfg.d_model)).to(dev).levels(fr)
+            c = init_cache(model, B, T, dev)
+            c["cross_k"], c["cross_v"] = whisper.build_cross_cache(params[dev], enc, cfg)
+            start = torch.full((B,), 1, dtype=torch.int32, device=dev)
+            kv_len = torch.zeros(B, dtype=torch.int32, device=dev)
+            toks, dec = _greedy(torch, model, params[dev], c, start, kv_len, n_new,
+                                cfg.vocab_size)
+            teacher = torch.cat([start[:, None], toks[:, :-1]], 1)
+            train = whisper.decode_train(params[dev], teacher, enc, cfg)
+        out[dev] = [t.cpu() for t in (enc, c["cross_k"], dec, train, levels, toks)]
+    gaps = [float((a.float() - b.float()).abs().max()) for a, b in zip(out["cuda"], out["cpu"])]
+    close = all(torch.allclose(a, b, rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL)
+                for a, b in zip(out["cuda"][:4], out["cpu"][:4]))
+    levels_equal = bool(torch.equal(out["cuda"][4], out["cpu"][4]))
+    tokens_equal = bool(torch.equal(out["cuda"][5], out["cpu"][5]))
+    ok = close and levels_equal and tokens_equal
+    emit("audio_parity", arch="whisper-medium (reduced, fp32)", frames=T,
+         max_abs_gap={"encode": gaps[0], "cross_cache_k": gaps[1], "decode_logits": gaps[2],
+                      "decode_train_logits": gaps[3]},
+         tol=LM_PARITY_TOL, frontend_levels_equal=levels_equal,
+         greedy_tokens_card=out["cuda"][5].tolist(), greedy_tokens_equal=tokens_equal, ok=ok)
+    if not ok:
+        raise SystemExit("the card's reduced whisper leaves the port's CPU path")
+
+
+def _free_device(torch) -> int:
+    """Release what the previous phase left in PyTorch's cache; bytes still allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _reset_all_counts():
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.pruned_quant import ops as pq
+
+    for m in (pq, fops, dops):
+        m.reset_launch_counts()
+    return lambda: {**pq.LAUNCHES, **fops.LAUNCHES, **dops.LAUNCHES}
+
+
+VLM_CUT_LAYERS = 8  # the fp32 floor of decode vs prefill is taken on this cut
+VLM_LONG = 4096     # positions of the long prefill: 256 patches + 3840 tokens
+
+
+def phase_vlm_slice(torch, profile: bool = False):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core import adc
+    from repro_torch.kernels.pruned_quant import ref as pq_ref
+    from repro_torch.models import build_model, exact_n_params, init_cache, transformer
+
+    allocated_before = _free_device(torch)
+    cfg = registry.get("internvl2-26b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    V, P = cfg.vocab_size, cfg.frontend_len
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, S_text, n_new, S_cache = 4, 64, 32, 512
+    pe = torch.rand((B, P, cfg.d_model), generator=gen, device="cuda")
+    text = torch.randint(0, V, (B, S_text), generator=gen, device="cuda")
+    long_pe = torch.rand((1, P, cfg.d_model), generator=gen, device="cuda")
+    long_text = torch.randint(0, V, (1, VLM_LONG - P), generator=gen, device="cuda")
+    calls = {"prefill": 0, "decode_step": 0}
+    originals = {n: _count_calls(transformer, n, calls) for n in calls}
+    try:
+        # -- the main path: counts set to 0 just before, read just after
+        read_counts = _reset_all_counts()
+        with torch.inference_mode():
+            request_prefill_ms = []
+            for _ in range(2):  # the first call includes cuBLAS's set-up for these shapes
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, pre_cache = model.prefill(params, text, pe)
+                torch.cuda.synchronize()
+                request_prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            prefill_finite = bool(torch.isfinite(logits).all())
+            cache = init_cache(model, B, S_cache, "cuda")
+            for n in ("k", "v"):
+                cache[n][:, :, : P + S_text] = pre_cache[n]
+            del pre_cache
+            first = logits[:, -1, :V].argmax(-1).to(torch.int32)
+            del logits
+            kv_len = torch.full((B,), P + S_text, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, dec_logits = _greedy(torch, model, params, cache, first, kv_len, n_new, V)
+            torch.cuda.synchronize()
+            decode_step_ms = (time.perf_counter() - t0) / n_new * 1e3
+            decode_finite = bool(torch.isfinite(dec_logits).all())
+            del dec_logits
+            long_ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, _ = model.prefill(params, long_text, long_pe)
+                torch.cuda.synchronize()
+                long_ms.append((time.perf_counter() - t0) * 1e3)
+            long_finite = bool(torch.isfinite(lg).all())
+            del lg
+        launches = read_counts()
+        main_calls = dict(calls)
+    finally:
+        for n, f in originals.items():
+            setattr(transformer, n, f)
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.inference_mode():
+        if profile:
+            def four_steps():
+                _greedy(torch, model, params, cache, first, kv_len + n_new, 4, V)
+
+            emit("vlm_profile", what="4 decode steps, B=4, 352 positions in",
+                 **_profiled(torch, four_steps, "profile_internvl2_decode.json"))
+            emit("vlm_profile", what="prefill of 256 patches + 3840 tokens, B=1",
+                 **_profiled(torch, lambda: model.prefill(params, long_text, long_pe),
+                             "profile_internvl2_prefill.json"))
+        del cache
+        # -- the frontend at full width: grid values are its fixed points, so
+        # the plain version's quantized patches give the kernel's bits
+        thr, ids = pq_ref.make_tables(torch.ones(cfg.d_model, 16, dtype=torch.bool,
+                                                 device="cuda"), cfg.frontend_adc_bits)
+        on_grid = adc.levels_to_values(pq_ref.pruned_quantize_ref(pe, thr, ids),
+                                       cfg.frontend_adc_bits)
+        a, _ = model.prefill(params, text, pe)
+        b, _ = model.prefill(params, text, on_grid)
+        frontend_bits_equal = bool(torch.equal(a, b))
+        del a, b
+
+        # -- decode vs prefill on an 8-layer cut of the same full-width weights
+        cut = dataclasses.replace(cfg, n_layers=VLM_CUT_LAYERS)
+        params8 = {k: v[:VLM_CUT_LAYERS] if k in transformer._LAYER_KEYS else v
+                   for k, v in params.items()}
+        prompt, pe1 = text[:1], pe[:1]
+        pre, c1 = transformer.prefill(params8, prompt[:, :1], cut, pe1)
+        c = init_cache(build_model(cut), 1, P + S_text, "cuda")
+        for n in ("k", "v"):
+            c[n][:, :, : P + 1] = c1[n]
+        kv = torch.full((1,), P + 1, dtype=torch.int32, device="cuda")
+        dec = []
+        for t in range(1, S_text):
+            lg, c = transformer.decode_step(params8, prompt[:, t], c, kv, cut)
+            kv = kv + 1
+            dec.append(lg)
+        dec = torch.stack(dec, 1).float()
+        full, _ = transformer.prefill(params8, prompt, cut, pe1)
+        full = full[:, P + 1:].float()
+        del c, c1, pre
+        params32 = {k: v.float() for k, v in params8.items()}
+        f32, _ = transformer.prefill(params32, prompt, cut, pe1)
+        f32 = f32[:, P + 1:]
+        del params32, params8
+    gap = float((dec - full).abs().max())
+    floor = float((full - f32).abs().max())
+    argmax_agree = float((dec[..., :V].argmax(-1) == full[..., :V].argmax(-1)).float().mean())
+    del params
+    want = {"pruned_quantize": main_calls["prefill"],
+            "flash_attention": cfg.n_layers * main_calls["prefill"],
+            "decode_attention": cfg.n_layers * main_calls["decode_step"]}
+    checks = {
+        "prefill_logits_finite": prefill_finite and long_finite,
+        "decode_logits_finite": decode_finite,
+        "tokens_in_vocab": bool(((toks >= 0) & (toks < V)).all()),
+        "launch_counts": launches == want and main_calls == {"prefill": 4, "decode_step": n_new},
+        "frontend_fixed_point_bits_equal": frontend_bits_equal,
+        "decode_matches_prefill_on_cut": gap <= DECODE_FLOOR_FACTOR * floor,
+    }
+    emit("vlm_slice", arch="internvl2-26b", dtype=cfg.dtype, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_params=exact_n_params(cfg), param_bytes=n_bytes,
+         allocated_before_bytes=allocated_before, init_s=init_s, peak_memory_bytes=peak,
+         requests=B, patches=P, text_tokens=S_text, request_prefill_ms=request_prefill_ms,
+         decode_steps=n_new, decode_step_ms_b4=decode_step_ms,
+         tokens=toks.tolist(), long_prefill_positions=VLM_LONG, long_prefill_ms=long_ms,
+         calls=main_calls, launches=launches, expected_launches=want,
+         decode_check_cut_layers=VLM_CUT_LAYERS, decode_vs_prefill_max_abs=gap,
+         prefill_bf16_vs_fp32_max_abs=floor, decode_tol=DECODE_FLOOR_FACTOR * floor,
+         argmax_agreement=argmax_agree, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"vlm_slice checks failed: {checks}")
+    return launches
+
+
+def phase_audio_slice(torch, profile: bool = False):
+    from repro_torch.configs import registry
+    from repro_torch.models import build_model, exact_n_params, init_cache, whisper
+
+    allocated_before = _free_device(torch)
+    cfg = registry.get("whisper-medium")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    V = cfg.vocab_size
+    B, T, n_new = AUDIO_FRAMES[0], AUDIO_FRAMES[1], 32
+    frames = torch.rand(AUDIO_FRAMES, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    start = torch.full((B,), WHISPER_SOT, dtype=torch.int32, device="cuda")
+    calls = {"encode": 0, "decode_step": 0}
+    originals = {n: _count_calls(whisper, n, calls) for n in calls}
+    try:
+        # -- the main path: counts set to 0 just before, read just after
+        read_counts = _reset_all_counts()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = whisper.encode(params, frames, cfg)
+            torch.cuda.synchronize()
+            encode_ms = (time.perf_counter() - t0) * 1e3
+            cache = init_cache(model, B, T, "cuda")
+            cache["cross_k"], cache["cross_v"] = whisper.build_cross_cache(params, enc, cfg)
+            kv_len = torch.zeros(B, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, dec = _greedy(torch, model, params, cache, start, kv_len, n_new, V)
+            torch.cuda.synchronize()
+            decode_step_ms = (time.perf_counter() - t0) / n_new * 1e3
+        launches = read_counts()
+        main_calls = dict(calls)
+    finally:
+        for n, f in originals.items():
+            setattr(whisper, n, f)
+    peak = torch.cuda.max_memory_allocated()
+
+    with torch.inference_mode():
+        if profile:
+            emit("audio_profile", what="encode, B=4 x 1500 frames",
+                 **_profiled(torch, lambda: whisper.encode(params, frames, cfg),
+                             "profile_whisper_encode.json"))
+            emit("audio_profile", what="4 decode steps, B=4, 32 positions in",
+                 **_profiled(torch, lambda: _greedy(torch, model, params, cache, start,
+                                                    kv_len + n_new, 4, V),
+                             "profile_whisper_decode.json"))
+        # -- the steps against the teacher-forced decoder, and its fp32 floor
+        teacher = torch.cat([start[:, None], toks[:, :-1]], 1)
+        train = whisper.decode_train(params, teacher, enc, cfg).float()
+        params32 = {k: v.float() for k, v in params.items()}
+        f32 = whisper.decode_train(params32, teacher, whisper.encode(params32, frames, cfg), cfg)
+        del params32
+    dec = dec.float()
+    gap = float((dec - train).abs().max())
+    floor = float((train - f32).abs().max())
+    argmax_agree = float((dec[..., :V].argmax(-1) == train[..., :V].argmax(-1)).float().mean())
+    want = {"pruned_quantize": main_calls["encode"],
+            "flash_attention": cfg.encoder_layers * main_calls["encode"],
+            "decode_attention": 2 * cfg.n_layers * main_calls["decode_step"]}
+    checks = {
+        "encode_finite": bool(torch.isfinite(enc).all()),
+        "decode_logits_finite": bool(torch.isfinite(dec).all()),
+        "tokens_in_vocab": bool(((toks >= 0) & (toks < V)).all()),
+        "launch_counts": launches == want and main_calls == {"encode": 1, "decode_step": n_new},
+        "decode_matches_decode_train": gap <= DECODE_FLOOR_FACTOR * floor,
+    }
+    emit("audio_slice", arch="whisper-medium", dtype=cfg.dtype,
+         encoder_layers=cfg.encoder_layers, decoder_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_params=exact_n_params(cfg), param_bytes=n_bytes,
+         allocated_before_bytes=allocated_before, peak_memory_bytes=peak, batch=B, frames=T,
+         encode_ms=encode_ms, decode_steps=n_new, decode_step_ms_b4=decode_step_ms,
+         tokens=toks.tolist(), calls=main_calls, launches=launches, expected_launches=want,
+         decode_vs_decode_train_max_abs=gap, decode_train_bf16_vs_fp32_max_abs=floor,
+         decode_tol=DECODE_FLOOR_FACTOR * floor, argmax_agreement=argmax_agree,
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"audio_slice checks failed: {checks}")
+    return launches
+
+
 def build_all(torch) -> None:
     """Build every kernel library at once: one nvcc per source, in parallel."""
     from concurrent.futures import ThreadPoolExecutor
@@ -735,6 +1311,7 @@ def build_all(torch) -> None:
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.fused_qat import ops as qops
+    from repro_torch.kernels.pruned_quant import ops as pq
 
     def timed(build):
         t0 = time.perf_counter()
@@ -742,7 +1319,7 @@ def build_all(torch) -> None:
         return str(so.relative_to(ROOT)), time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    mods = {"fused_qat": qops, "decode_attn": dops, "flash_attn": fops}
+    mods = {"fused_qat": qops, "decode_attn": dops, "flash_attn": fops, "pruned_quant": pq}
     with ThreadPoolExecutor(len(mods)) as pool:
         futures = {name: pool.submit(timed, m.build) for name, m in mods.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -766,16 +1343,24 @@ def main() -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    profile = "--profile" in sys.argv[1:]
     build_all(torch)
     kern = phase_kernels(torch)
     phase_placement(torch)
     phase_parity(torch)
     launches = phase_slice(torch)
-    if "--profile" in sys.argv[1:]:
+    if profile:
         phase_profile(torch)
     attn = phase_attn_kernels(torch)
     phase_lm_parity(torch)
-    launches.update(phase_lm_slice(torch, profile="--profile" in sys.argv[1:]))
+    k1 = phase_frontend_kernel(torch)
+    phase_mm_attn_kernels(torch)
+    phase_vlm_parity(torch)
+    phase_audio_parity(torch)
+    # each serving path's launches, read from its own run, summed over the paths
+    for path in (phase_lm_slice, phase_vlm_slice, phase_audio_slice):
+        for kname, n in path(torch, profile=profile).items():
+            launches[kname] = launches.get(kname, 0) + n
 
     train = kern[128]
     rows = []
@@ -816,6 +1401,19 @@ def main() -> int:
             "bound_by": main_path["bound_by"],
             "library_ms": main_path["library_ms"],
         })
+    rows.append({
+        "name": "pruned_quantize",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/pruned_quant/csrc/pruned_quant.cu",
+        "replaces": "src/repro/kernels/pruned_quant/pruned_quant.py:30",
+        "launches": launches["pruned_quantize"],
+        "max_abs_err": k1["max_abs_err"],
+        "ms": k1["vlm"]["ms"],  # internvl2-26b's patch shape, 1024 x 6144
+        "plain_ms": k1["vlm"]["plain_ms"],
+        "bound_ms": k1["vlm"]["bound_ms"],
+        "bound_by": k1["vlm"]["bound_by"],
+        "library_ms": k1["vlm"]["library_ms"],
+    })
     if not all(math.isfinite(r["ms"]) and r["launches"] > 0 for r in rows):
         raise SystemExit(f"a kernel has no time or was not launched on its path: {rows}")
     print(smi, flush=True)

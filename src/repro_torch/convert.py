@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import build_model, transformer
 
 __all__ = ["params_from_jax", "lm_params_from_jax"]
 
@@ -36,13 +36,14 @@ def params_from_jax(params: dict[str, np.ndarray], device=None) -> dict[str, tor
 
 
 def lm_params_from_jax(params: dict[str, np.ndarray], cfg, device=None) -> dict[str, torch.Tensor]:
-    """A transformer's parameter dict (numpy) -> the port's tensors in ``cfg.dtype``.
+    """A model's parameter dict (numpy) -> the port's tensors in ``cfg.dtype``.
 
-    The names and shapes must be those of ``models.transformer.param_specs(cfg)``.
+    The names and shapes must be those of the family's ``param_specs``
+    (``models.transformer`` for dense and VLM, ``models.whisper`` for audio).
     Arrays may arrive in fp32 (a bf16 -> fp32 -> bf16 round trip is exact).
     """
     dev = resolve_device(device)
-    specs = transformer.param_specs(cfg)
+    specs = build_model(cfg).param_specs()
     if set(params) != set(specs):
         raise ValueError(f"parameter names differ: {sorted(set(params) ^ set(specs))}")
     out = {}

@@ -1,1 +1,3 @@
-"""Comparator-bank tables and plain level encoder (the K1 kernel waits for a later slice)."""
+"""The pruned flash-ADC comparator bank (kernel K1), its tables and plain encoder."""
+
+from repro_torch.kernels.pruned_quant.ops import pruned_quantize

@@ -7,9 +7,13 @@ finished requests retire and their slots are refilled (continuous
 batching).  The scheduling, the greedy argmax over ``[:vocab_size]`` and the
 returned fields are the reference's, line for line.
 
-On a CUDA device every ``decode_step`` runs the decode attention as the
-hand-written flash-decode kernel K5, once per layer.  Everything runs under
-``torch.inference_mode()``.
+The cache comes from the model's ``cache_specs(max_batch, max_len)``, as
+in the reference: (L, B, max_len) KV caches for the dense and VLM families;
+for whisper, self caches of ``max_target_len`` and zeroed cross caches of
+``max_len`` positions (the reference serves whisper's decoder alone).  On a
+CUDA device every ``decode_step`` runs the decode attention as the
+hand-written flash-decode kernel K5, once per layer (twice for whisper:
+self and cross).  Everything runs under ``torch.inference_mode()``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b          # the card
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu          # plain path
@@ -26,8 +30,7 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
-from repro_torch.models.transformer import init_cache
+from repro_torch.models import build_model, init_cache
 
 __all__ = ["ServeConfig", "Request", "run", "main"]
 
@@ -97,7 +100,7 @@ def run(cfg: ServeConfig, params: dict | None = None) -> dict:
     finish_step: dict[int, int] = {}
     peak_active = 0
 
-    cache = init_cache(model_cfg, cfg.max_batch, cfg.max_len, dev)
+    cache = init_cache(model, cfg.max_batch, cfg.max_len, dev)
     kv_len = torch.zeros((cfg.max_batch,), dtype=torch.int32, device=dev)
     cur_tok = torch.zeros((cfg.max_batch,), dtype=torch.int32, device=dev)
 

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense transformer family so far."""
+"""Model zoo of the port: the dense and VLM transformer family and whisper."""
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.api import Model, build_model, exact_n_params
+from repro_torch.models.api import Model, build_model, exact_n_params, init_cache

@@ -5,9 +5,13 @@ package's ``models/api.Model`` does:
   * ``param_specs()``     -- {name: (shape, logical_axes, dtype)} (no alloc)
   * ``init_params(gen)``  -- random tensors on the ``torch.Generator``'s device
   * ``prefill / decode_step / cache_specs`` -- serving entry points
+    (``prefill`` is None for the audio family, as in the reference)
 
-Only the dense family is ported; ``loss_fn`` comes with the training slice.
-Every other family raises ``NotImplementedError`` naming its ROADMAP item.
+``init_cache(model, ...)`` zeroes the caches of ``model.cache_specs``.
+
+The dense, VLM and audio families are ported; ``loss_fn`` comes with the
+training slice.  Every other family raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,17 +22,15 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Model", "build_model", "exact_n_params"]
+__all__ = ["Model", "build_model", "init_cache", "exact_n_params"]
 
 NOT_PORTED = {
     "moe": transformer.MOE_TODO,
-    "vlm": transformer.VLM_TODO,
     "ssm": "the ssm family (rwkv6) is not ported yet: ROADMAP Queue 1 item 11",
     "hybrid": "the hybrid family (zamba2) is not ported yet: ROADMAP Queue 1 item 12",
-    "audio": "the audio family (whisper) is not ported yet: ROADMAP Queue 1 item 13",
 }
 
 
@@ -39,12 +41,12 @@ class Model:
     init_params: Callable[[torch.Generator], dict]
     decode_step: Callable[..., Any]
     cache_specs: Callable[..., dict]
-    prefill: Callable[..., Any]
+    prefill: Callable[..., Any] | None = None
 
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam == "dense":
+    if fam in ("dense", "vlm"):
         return Model(
             cfg=cfg,
             param_specs=lambda: transformer.param_specs(cfg),
@@ -53,9 +55,26 @@ def build_model(cfg: ModelConfig) -> Model:
             cache_specs=lambda batch, max_len: transformer.cache_specs(cfg, batch, max_len),
             prefill=lambda p, t, pe=None: transformer.prefill(p, t, cfg, pe),
         )
+    if fam == "audio":
+        return Model(
+            cfg=cfg,
+            param_specs=lambda: whisper.param_specs(cfg),
+            init_params=lambda gen: whisper.init_params(gen, cfg),
+            decode_step=lambda p, t, c, n: whisper.decode_step(p, t, c, n, cfg),
+            cache_specs=lambda batch, enc_len: whisper.cache_specs(cfg, batch, enc_len),
+        )
     if fam in NOT_PORTED:
         raise NotImplementedError(NOT_PORTED[fam])
     raise ValueError(f"unknown family {fam}")
+
+
+def init_cache(model: Model, batch: int, max_len: int, device) -> dict[str, torch.Tensor]:
+    """Zeroed caches of ``model.cache_specs(batch, max_len)`` on ``device``
+    (for whisper, ``max_len`` is the cross caches' encoder length)."""
+    return {
+        n: torch.zeros(shape, dtype=transformer.DTYPES[dt], device=device)
+        for n, (shape, _, dt) in model.cache_specs(batch, max_len).items()
+    }
 
 
 def exact_n_params(cfg: ModelConfig) -> int:

@@ -1,6 +1,7 @@
-"""Dense transformer family (yi, qwen3, command-r, mistral-nemo) for serving.
+"""Dense and VLM transformer family (yi, qwen3, command-r, mistral-nemo, the
+internvl2 backbone) for serving.
 
-The port of the JAX package's ``models/transformer.py``, dense family only:
+The port of the JAX package's ``models/transformer.py``, dense and VLM only:
 the same parameter names, shapes and layouts (layer parameters stacked on a
 leading ``n_layers`` axis), the same entry points.  What differs, and why:
 
@@ -14,20 +15,29 @@ leading ``n_layers`` axis), the same entry points.  What differs, and why:
   (``kernels/decode_attn``) in ``decode_step``.  ``cfg.attention_impl``
   chooses among the plain versions only on the CPU, where ``_choose_attn``
   keeps the reference's meaning ("pallas" takes K4's plain version).
+  ``attend`` and ``decode_attend`` hold this routing for whisper too.
 * **``decode_step`` writes the new k/v into the cache in place** at
   ``kv_len``, where the reference rebuilds the whole cache with
   ``jnp.where``: the values are identical (a position past the cache is
   written nowhere, as there), and a step does not rewrite the cache (1.6 GB
   for yi-9b at 4 slots x 4096 positions).
-* The MoE branch and the VLM patch branch raise ``NotImplementedError``.
+* **The VLM patch branch** (``_full_sequence``, so ``forward`` and
+  ``prefill``) runs the fp32 patch embeddings through the paper's
+  ``PrunedQuantFrontend`` (``core/frontend``: K1 on a CUDA tensor), casts
+  them to the model's dtype, projects them with ``patch_proj`` and puts
+  them before the token embeddings, as the reference does.  RoPE positions
+  and the cache run over all P + S positions; decode goes on at P + S.
+* The MoE branch raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers as L
@@ -41,7 +51,8 @@ __all__ = [
     "prefill",
     "decode_step",
     "cache_specs",
-    "init_cache",
+    "attend",
+    "decode_attend",
 ]
 
 Specs = dict[str, tuple[tuple[int, ...], tuple[str | None, ...], str]]
@@ -49,7 +60,6 @@ Specs = dict[str, tuple[tuple[int, ...], tuple[str | None, ...], str]]
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 MOE_TODO = "the MoE family (phi3.5-moe, arctic) is not ported yet: ROADMAP Queue 1 item 9"
-VLM_TODO = "the VLM patch frontend on K1 (internvl2-26b) is not ported yet: ROADMAP Queue 1 item 10"
 
 
 # ---------------------------------------------------------------------------
@@ -120,18 +130,22 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tenso
 # blocks
 # ---------------------------------------------------------------------------
 
-def _attend(q, k, v, cfg: ModelConfig, attn_impl: str):
-    """Full-sequence causal attention: K4 on CUDA, a plain version on the CPU."""
-    if q.is_cuda or attn_impl == "pallas":
-        return flash_ops.flash_attention(q, k, v, causal=True)
-    if attn_impl == "flash":
-        return L.flash_attention(
-            q, k, v, causal=True, p_dtype=DTYPES[cfg.flash_p_dtype], block_k=cfg.flash_block_k
-        )
-    return L.plain_attention(q, k, v, causal=True)
+def attend(q, k, v, causal: bool, cpu_attention=L.plain_attention):
+    """Full-sequence attention: K4 on a CUDA tensor; on the CPU
+    ``cpu_attention``, the plain version the reference's model picks."""
+    if q.is_cuda:
+        return flash_ops.flash_attention(q, k, v, causal=causal)
+    return cpu_attention(q, k, v, causal=causal)
 
 
-def _attention_block(x, lp, cfg: ModelConfig, rope, attn_impl: str):
+def decode_attend(q, k_cache, v_cache, kv_len):
+    """One-token attention: K5 on CUDA, the reference's jnp twin on the CPU."""
+    if q.is_cuda:
+        return decode_ops.decode_attention(q, k_cache, v_cache, kv_len)
+    return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
+
+
+def _attention_block(x, lp, cfg: ModelConfig, rope, cpu_attention):
     """x: (B, S, d); lp: one layer's params (leading axis stripped); rope:
     ``layers.rope_angles`` of the positions."""
     B, S, d = x.shape
@@ -145,7 +159,7 @@ def _attention_block(x, lp, cfg: ModelConfig, rope, attn_impl: str):
         k = L.rms_norm(k, lp["k_norm"])
     q = L.rotate(q, *rope)
     k = L.rotate(k, *rope)
-    o = _attend(q, k, v, cfg, attn_impl)
+    o = attend(q, k, v, True, cpu_attention)
     o = torch.matmul(o.reshape(B, S, Hq * hd), lp["wo"])
     return x + o, (k, v)
 
@@ -156,8 +170,8 @@ def _mlp(h, lp, cfg: ModelConfig):
     return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
-def _layer(x, lp, cfg: ModelConfig, rope, attn_impl: str):
-    x, kv = _attention_block(x, lp, cfg, rope, attn_impl)
+def _layer(x, lp, cfg: ModelConfig, rope, cpu_attention):
+    x, kv = _attention_block(x, lp, cfg, rope, cpu_attention)
     return x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg), kv
 
 
@@ -177,11 +191,18 @@ def _layer_params(stacked, i: int):
     return {k: v[i] for k, v in stacked.items()}
 
 
-def _choose_attn(cfg: ModelConfig, seq_len: int) -> str:
+def _choose_attn(cfg: ModelConfig, seq_len: int):
     """The plain version the CPU runs (a CUDA tensor always takes K4)."""
-    if cfg.attention_impl != "auto":
-        return cfg.attention_impl
-    return "flash" if seq_len > 8192 else "plain"
+    impl = cfg.attention_impl
+    if impl == "auto":
+        impl = "flash" if seq_len > 8192 else "plain"
+    if impl == "pallas":
+        return flash_ops.flash_attention
+    if impl == "flash":
+        return functools.partial(
+            L.flash_attention, p_dtype=DTYPES[cfg.flash_p_dtype], block_k=cfg.flash_block_k
+        )
+    return L.plain_attention
 
 
 def _head(x, rest, cfg: ModelConfig):
@@ -194,20 +215,28 @@ def _head(x, rest, cfg: ModelConfig):
 # forward / prefill (one body) and decode
 # ---------------------------------------------------------------------------
 
+def _patches(pe, rest, cfg: ModelConfig, dtype):
+    """(B, P, d) fp32 patch embeddings -> projected (B, P, d) in ``dtype``."""
+    if cfg.use_pruned_frontend:
+        fe = PrunedQuantFrontend(FrontendConfig(cfg.d_model, cfg.frontend_adc_bits))
+        pe = fe.to(pe.device)(pe)
+    return torch.matmul(pe.to(dtype), rest["patch_proj"])
+
+
 def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: bool):
-    if cfg.family == "vlm" and patch_embeds is not None:
-        raise NotImplementedError(VLM_TODO)
     stacked, rest = _split_layer_params(params)
     x = rest["embed"][tokens]  # (B, S, d)
-    B, S = tokens.shape
+    if cfg.family == "vlm" and patch_embeds is not None:
+        x = torch.cat([_patches(patch_embeds, rest, cfg, x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
-    attn_impl = _choose_attn(cfg, S)
+    cpu_attention = _choose_attn(cfg, S)
     cache = None
     if keep_cache:
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
         cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
     for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_params(stacked, i), cfg, rope, attn_impl)
+        x, (k, v) = _layer(x, _layer_params(stacked, i), cfg, rope, cpu_attention)
         if keep_cache:
             cache["k"][i] = k
             cache["v"][i] = v
@@ -215,23 +244,17 @@ def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: b
 
 
 def forward(params, tokens, cfg: ModelConfig, patch_embeds=None) -> torch.Tensor:
-    """Logits (B, S, V) of a full sequence; tokens (B, S) integer."""
+    """Logits (B, P + S, V) of a full sequence; tokens (B, S) integer, and for
+    the VLM ``patch_embeds`` (B, P, d) fp32 or None (P = 0)."""
     return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=False)[0]
 
 
 def prefill(params, tokens, cfg: ModelConfig, patch_embeds=None):
     """Full-sequence forward that also returns the KV cache.
 
-    Returns (logits (B, S, V), cache {k,v: (L, B, S, Hkv, hd)}).
+    Returns (logits (B, P + S, V), cache {k,v: (L, B, P + S, Hkv, hd)}).
     """
     return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=True)
-
-
-def _decode_attend(q, k_cache, v_cache, kv_len):
-    """One-token attention: K5 on CUDA, the reference's jnp twin on the CPU."""
-    if q.is_cuda:
-        return decode_ops.decode_attention(q, k_cache, v_cache, kv_len)
-    return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
 
 
 def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
@@ -270,7 +293,7 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
         kc, vc = cache["k"][i], cache["v"][i]
         kc[rows, at] = torch.where(inside, k, kc[rows, at])
         vc[rows, at] = torch.where(inside, v, vc[rows, at])
-        o = _decode_attend(q, kc, vc, attn_len)
+        o = decode_attend(q, kc, vc, attn_len)
         x = x + torch.matmul(o.reshape(B, Hq * hd), lp["wo"])
         x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg)
     return _head(x, rest, cfg), cache
@@ -281,11 +304,3 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Specs:
     shape = (cfg.n_layers, batch, max_len, Hkv, hd)
     axes = (None, "batch", None, "kv_heads", "head_dim")
     return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
-
-
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict[str, torch.Tensor]:
-    """Zeroed KV caches of ``cache_specs`` on ``device``."""
-    return {
-        n: torch.zeros(shape, dtype=DTYPES[dt], device=device)
-        for n, (shape, _, dt) in cache_specs(cfg, batch, max_len).items()
-    }

@@ -31,9 +31,8 @@ from repro.models import build_model as jbuild  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import build_model, exact_n_params  # noqa: E402
+from repro_torch.models import build_model, exact_n_params, init_cache  # noqa: E402
 from repro_torch.models.config import n_active_params, n_params  # noqa: E402
-from repro_torch.models.transformer import init_cache  # noqa: E402
 
 REF = dict(atol=1e-4, rtol=1e-4)
 SELF = dict(atol=2e-3, rtol=2e-3)
@@ -97,7 +96,7 @@ def test_prefill_and_decode_match_reference(arch):
     # decode from empty caches, rows at different lengths (row 1 starts later)
     jc = _zeros(jmodel.cache_specs(B, Smax))
     step = jax.jit(jmodel.decode_step)
-    c = init_cache(model.cfg, B, Smax, "cpu")
+    c = init_cache(model, B, Smax, "cpu")
     kv = np.array([0, 3], np.int32)
     for t in range(S):
         tok = tokens[:, t]
@@ -115,7 +114,7 @@ def test_decode_writes_nothing_past_the_cache():
     jmodel, jparams, model, params = _carried("yi-9b", seed=4)
     B, Smax = 2, 4
     rng = np.random.default_rng(4)
-    c = init_cache(model.cfg, B, Smax, "cpu")
+    c = init_cache(model, B, Smax, "cpu")
     c["k"].normal_(generator=torch.Generator().manual_seed(0))
     c["v"].normal_(generator=torch.Generator().manual_seed(1))
     jc = {n: jnp.asarray(c[n].numpy()) for n in ("k", "v")}
@@ -140,7 +139,7 @@ def test_decode_matches_prefill(arch, B, S):
         np.random.default_rng(0).integers(0, model.cfg.vocab_size, (B, S)).astype(np.int32))
     with torch.inference_mode():
         full, _ = model.prefill(params, tokens)
-        cache = init_cache(model.cfg, B, S + 4, "cpu")
+        cache = init_cache(model, B, S + 4, "cpu")
         kv_len = torch.zeros(B, dtype=torch.int32)
         for t in range(S):
             logits, cache = model.decode_step(params, tokens[:, t], cache, kv_len)
@@ -217,8 +216,10 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_families_name_their_roadmap_item():
-    for name, item in (("phi3.5-moe-42b-a6.6b", "item 9"), ("internvl2-26b", "item 10"),
-                       ("rwkv6-1.6b", "item 11"), ("zamba2-2.7b", "item 12"),
-                       ("whisper-medium", "item 13")):
+    for name, item in (("phi3.5-moe-42b-a6.6b", "item 9"), ("rwkv6-1.6b", "item 11"),
+                       ("zamba2-2.7b", "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             build_model(registry.reduced(registry.get(name)))
+    # ported: the VLM (item 10) and whisper (item 13) build
+    for name in ("internvl2-26b", "whisper-medium"):
+        assert build_model(registry.reduced(registry.get(name))).cfg.name == name
