@@ -5,12 +5,21 @@
     python3 chip_smoke.py --profile   # also profile 20 training steps, and decode steps
                                       # and a prefill (or encode) of each served model
                                       # (gzipped traces to the OUT directory)
+    python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
+                                      # and timed), and stop: no result lines
+    python3 chip_smoke.py --decode-ab DIR
+                                      # only the decode-step wall time of the three
+                                      # served models, K5 alternately this checkout's
+                                      # and the one under DIR (another checkout's src,
+                                      # e.g. the parent commit's); no result lines
 
 Phases, one JSON line each; any failure ends the run with a nonzero exit:
 
 1. device       the card's name, count, power limit.
 2. build        every kernel library, built with nvcc for sm_90a from the
-                repository's sources, one nvcc per source, all at once.
+                repository's sources, one nvcc per source, all at once; then
+                one ``ptxas`` line a library: each kernel's registers, static
+                shared memory and spills, from ``nvcc -Xptxas -v``.
 3. kernels      K2 (forward) and K3 (backward) of the fused pruned-ADC QAT layer
                 against their plain PyTorch versions on the card, at the main
                 path's shapes (P=24 rows, C=21 inputs, F=5 hidden, B=128 and
@@ -27,11 +36,16 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
 7. attn_kernels K4 (flash attention) and K5 (flash-decode) against their plain
                 versions in bf16 and fp32, at yi-9b's prefill and decode shapes
                 and at the edge shapes of the CPU sweep; times by CUDA events
-                beside the plain version, SDPA (the library yardstick) and the
-                bound.
+                (K5: by the profiler) beside the plain version, SDPA (the
+                library yardstick) and the bound.
+                Each K4 record names the variant that ran, checked from its
+                counters (bf16: the tensor-core kernel, fp32: the CUDA-core
+                one); each K5 record its split count, and K5 gives the same
+                bits twice.
 8. lm_parity    reduced yi-9b in fp32, one set of seed-drawn parameters on the
                 card and on the port's CPU path: ``serve.run`` tokens equal,
-                prefill and decode logits within the fp32 bound.
+                prefill and decode logits within the fp32 bound, and every K4
+                launch on the fp32 CUDA-core variant (as in 11).
 9. frontend_kernel
                 K1 (the pruned flash-ADC comparator bank) against its plain
                 version, tolerance 0, at internvl2-26b's patch shape (4 x 256 x
@@ -46,7 +60,8 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 heads, d 64, non-causal encoder and cross-attention) give them,
                 with q drawn 4x wider than k and v so that the outputs are O(1)
                 (each record gives the reference's RMS beside the error); times
-                beside the plain version, SDPA and the bound.
+                beside the plain version, SDPA and the bound; K4 on its
+                tensor-core variant, K5 the same bits twice.
 11. vlm_parity, audio_parity
                 reduced internvl2-26b and whisper-medium in fp32, one set of
                 seed-drawn parameters on the card and on the port's CPU path:
@@ -55,7 +70,8 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 greedy tokens.
 12. lm_slice    yi-9b at full width and depth in bf16: prefill of 4096 tokens and
                 ``serve.run`` of 8 staggered requests, with the K4 and K5 launch
-                counts read from that run alone (48 a prefill, 48 a decode step);
+                counts read from that run alone (48 a prefill, all on K4's
+                tensor-core variant, as in 13 and 14; 48 a decode step);
                 then decode-vs-prefill consistency on a 64-token prompt and
                 scheduling independence (a second run without arrival steps).
 13. vlm_slice   internvl2-26b at full width and depth in bf16, after yi-9b's
@@ -163,6 +179,9 @@ def kernel_ms(torch, fn, kernel: str, n: int = 20) -> float:
     if len(times) != n:
         raise SystemExit(f"the profiler saw {len(times)} launches of {kernel}, not {n}")
     return statistics.median(times) / 1e3
+
+
+K5_KERNEL = "decode_attn_split"  # either K5 kernel, bf16 or fp32: one launch a call
 
 
 def kernel_inputs(torch, B: int, seed: int):
@@ -372,6 +391,17 @@ def phase_slice(torch):
     return launches
 
 
+def _kernel_table(torch, prof) -> dict[str, list]:
+    """[launches, device us] by kernel name (its first 80 characters) of a profile."""
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name[:80], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+    return kernels
+
+
 def _profiled(torch, fn, trace: str) -> dict:
     """Run ``fn`` once under the profiler: wall time, device busy time, the
     device's idle share of the window and the kernels by device time."""
@@ -389,12 +419,7 @@ def _profiled(torch, fn, trace: str) -> dict:
     with open(raw, "rb") as src, gzip.open(f"{raw}.gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     raw.unlink()
-    kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name[:80], [0, 0.0])
-            k[0] += 1
-            k[1] += e.time_range.elapsed_us()
+    kernels = _kernel_table(torch, prof)
     device_us = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
     return dict(wall_s=wall, device_busy_us=device_us,
@@ -503,13 +528,16 @@ def phase_attn_kernels(torch):
             B, Sq, Sk, Hq, Hkv, d, causal = shape
             q, k, v = rn(B, Sq, Hq, d, dtype=dtype), rn(B, Sk, Hkv, d, dtype=dtype), rn(
                 B, Sk, Hkv, d, dtype=dtype)
-            n0 = fops.LAUNCHES["flash_attention"]
+            variant = fops.variant(dtype, d)
+            n0 = dict(fops.LAUNCHES)
             out = fops.flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
-            counted = fops.LAUNCHES["flash_attention"] - n0 == 1
+            counted = {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
+                "flash_attention": 1, "flash_attention_tc": int(variant == "tc"),
+                "flash_attention_fp32": int(variant == "fp32")}
             err, ok = _close(torch, out, fref.flash_attention_ref(q, k, v, causal), dname)
-            rec = {"kernel": "flash_attention", "dtype": dname, "shape": list(shape),
-                   "max_abs_err": err, "tol": ATTN_TOL[dname]}
+            rec = {"kernel": "flash_attention", "variant": variant, "dtype": dname,
+                   "shape": list(shape), "max_abs_err": err, "tol": ATTN_TOL[dname]}
             if shape == YI_PREFILL:
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                 bms, by = flash_bound(torch, *shape, dtype)
@@ -553,16 +581,20 @@ def phase_attn_kernels(torch):
             torch.cuda.synchronize()
             counted = dops.LAUNCHES["decode_attention"] - n0 == 1
             err, ok = _close(torch, out, dref.decode_attention_ref(q, k, v, kv_len), dname)
+            # the merge runs in split order, whichever block is last: the same bits every run
+            same_bits = bool(torch.equal(out, dops.decode_attention(q, k, v, kv_len)))
+            ok = ok and same_bits
             rec = {"kernel": "decode_attention", "dtype": dname, "shape": list(shape),
-                   "cache": kind, "kv_len": kv_len.tolist(), "max_abs_err": err,
-                   "tol": ATTN_TOL[dname]}
+                   "cache": kind, "kv_len": kv_len.tolist(),
+                   "n_split": dops.split_plan(B, Hkv, S)[0], "max_abs_err": err,
+                   "tol": ATTN_TOL[dname], "same_bits_twice": same_bits}
             if shape == YI_DECODE:
                 mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
                 q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
                 bms, by = decode_bound(torch, *shape, kv_len, dtype)
                 rec.update(
                     ms=kernel_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len),
-                                 "decode_attn_kernel"),
+                                 K5_KERNEL),
                     wrapper_ms=device_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len)),
                     plain_ms=device_ms(
                         torch, lambda: dref.decode_attention_ref(q, k, v, kv_len)),
@@ -587,9 +619,11 @@ def phase_lm_parity(torch):
     import numpy as np
 
     from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.launch import serve
     from repro_torch.models import build_model, init_cache
 
+    k4_before = dict(fops.LAUNCHES)
     model = build_model(registry.reduced(registry.get("yi-9b")))
     params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
     params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
@@ -618,8 +652,10 @@ def phase_lm_parity(torch):
                 for a, b in zip(logits["cuda"], logits["cpu"]))
     top2 = logits["cpu"][1][..., : model.cfg.vocab_size].topk(2, dim=-1).values
     margin = float((top2[..., 0] - top2[..., 1]).min())
-    ok = served_equal and close
+    k4_fp32 = fp32_variant_only(fops, k4_before)
+    ok = served_equal and close and k4_fp32
     emit("lm_parity", arch="yi-9b (reduced, fp32)", served_equal=served_equal,
+         k4_fp32_variant_only=k4_fp32,
          tokens_card=served["cuda"]["requests"], tokens_cpu=served["cpu"]["requests"],
          max_abs_gap={"prefill_logits": gaps[0], "decode_logits": gaps[1],
                       "prefill_cache_k": gaps[2], "decode_cache_k": gaps[3]},
@@ -639,6 +675,20 @@ def _count_calls(module, name: str, counts: dict):
 
     setattr(module, name, counted)
     return orig
+
+
+def k4_variants(n: int, dtype: str = "bfloat16") -> dict:
+    """K4's per-variant launch counts for n calls in one dtype: bf16 runs on
+    the tensor-core kernel, fp32 on the CUDA-core one."""
+    tc = n if dtype == "bfloat16" else 0
+    return {"flash_attention_tc": tc, "flash_attention_fp32": n - tc}
+
+
+def fp32_variant_only(fops, before: dict) -> bool:
+    """True if K4 ran since ``before`` and every launch took the fp32 kernel."""
+    d = {k: fops.LAUNCHES[k] - before[k] for k in before}
+    return d["flash_attention"] > 0 and d == {"flash_attention": d["flash_attention"],
+                                              **k4_variants(d["flash_attention"], "float32")}
 
 
 def phase_lm_slice(torch, profile: bool = False):
@@ -742,6 +792,7 @@ def phase_lm_slice(torch, profile: bool = False):
 
     want = {"flash_attention": cfg.n_layers * main_calls["prefill"],
             "decode_attention": cfg.n_layers * main_calls["decode_step"]}
+    want.update(k4_variants(want["flash_attention"]))
     n_dec = main_calls["decode_step"]
     checks = {
         "prefill_logits_finite": prefill_finite,
@@ -899,14 +950,18 @@ def phase_mm_attn_kernels(torch):
         B, Sq, Sk, Hq, Hkv, d, causal = shape
         q = rn(B, Sq, Hq, d, scale=MM_Q_SCALE)
         k, v = rn(B, Sk, Hkv, d), rn(B, Sk, Hkv, d)
+        n0 = fops.LAUNCHES["flash_attention_tc"]
         out = fops.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
+        tc = fops.LAUNCHES["flash_attention_tc"] - n0 == 1  # bf16 runs on the tensor cores
         want = fref.flash_attention_ref(q, k, v, causal)
         err, ok = _close(torch, out, want, "bfloat16")
+        ok = ok and tc
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         bms, by = flash_bound(torch, *shape, dtype)
         n = 3 if Sq * Sk > 10**6 else 20
-        rec = {"kernel": "flash_attention", "what": what, "shape": list(shape),
+        rec = {"kernel": "flash_attention", "variant": "tc" if tc else "not tc",
+               "what": what, "shape": list(shape),
                "q_scale": MM_Q_SCALE, "ref_rms": rms(want),
                "max_abs_err": err, "tol": ATTN_TOL["bfloat16"],
                "ms": device_ms(torch, lambda: fops.flash_attention(q, k, v, causal), n, 3),
@@ -927,14 +982,17 @@ def phase_mm_attn_kernels(torch):
         torch.cuda.synchronize()
         want = dref.decode_attention_ref(q, k, v, kv_len)
         err, ok = _close(torch, out, want, "bfloat16")
+        same_bits = bool(torch.equal(out, dops.decode_attention(q, k, v, kv_len)))
+        ok = ok and same_bits
         mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
         q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         bms, by = decode_bound(torch, B, Hq, Hkv, S, d, kv_len, dtype)
         rec = {"kernel": "decode_attention", "what": what, "shape": [B, Hq, Hkv, S, d],
-               "kv_len": list(lens), "q_scale": MM_Q_SCALE, "ref_rms": rms(want),
-               "max_abs_err": err, "tol": ATTN_TOL["bfloat16"],
+               "kv_len": list(lens), "n_split": dops.split_plan(B, Hkv, S)[0],
+               "q_scale": MM_Q_SCALE, "ref_rms": rms(want),
+               "max_abs_err": err, "tol": ATTN_TOL["bfloat16"], "same_bits_twice": same_bits,
                "ms": kernel_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len),
-                               "decode_attn_kernel"),
+                               K5_KERNEL),
                "plain_ms": device_ms(torch, lambda: dref.decode_attention_ref(q, k, v, kv_len)),
                "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
                    q4, kt, vt, attn_mask=mask, enable_gqa=True)),
@@ -964,8 +1022,10 @@ def phase_vlm_parity(torch):
 
     from repro_torch.configs import registry
     from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
+    from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.models import build_model, init_cache, transformer
 
+    k4_before = dict(fops.LAUNCHES)
     model = build_model(registry.reduced(registry.get("internvl2-26b")))
     cfg = model.cfg
     params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
@@ -996,12 +1056,14 @@ def phase_vlm_parity(torch):
                 for a, b in zip(out["cuda"][:4], out["cpu"][:4]))
     levels_equal = bool(torch.equal(out["cuda"][4], out["cpu"][4]))
     tokens_equal = bool(torch.equal(out["cuda"][5], out["cpu"][5]))
-    ok = close and levels_equal and tokens_equal
+    k4_fp32 = fp32_variant_only(fops, k4_before)
+    ok = close and levels_equal and tokens_equal and k4_fp32
     emit("vlm_parity", arch="internvl2-26b (reduced, fp32)", patches=P, tokens=S,
          max_abs_gap={"prefill_logits": gaps[0], "forward_logits": gaps[1],
                       "prefill_cache_k": gaps[2], "decode_logits": gaps[3]},
          tol=LM_PARITY_TOL, frontend_levels_equal=levels_equal,
-         greedy_tokens_card=out["cuda"][5].tolist(), greedy_tokens_equal=tokens_equal, ok=ok)
+         greedy_tokens_card=out["cuda"][5].tolist(), greedy_tokens_equal=tokens_equal,
+         k4_fp32_variant_only=k4_fp32, ok=ok)
     if not ok:
         raise SystemExit("the card's reduced internvl2 leaves the port's CPU path")
 
@@ -1014,8 +1076,10 @@ def phase_audio_parity(torch):
 
     from repro_torch.configs import registry
     from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
+    from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.models import build_model, init_cache, whisper
 
+    k4_before = dict(fops.LAUNCHES)
     model = build_model(registry.reduced(registry.get("whisper-medium")))
     cfg = model.cfg
     params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
@@ -1044,12 +1108,14 @@ def phase_audio_parity(torch):
                 for a, b in zip(out["cuda"][:4], out["cpu"][:4]))
     levels_equal = bool(torch.equal(out["cuda"][4], out["cpu"][4]))
     tokens_equal = bool(torch.equal(out["cuda"][5], out["cpu"][5]))
-    ok = close and levels_equal and tokens_equal
+    k4_fp32 = fp32_variant_only(fops, k4_before)
+    ok = close and levels_equal and tokens_equal and k4_fp32
     emit("audio_parity", arch="whisper-medium (reduced, fp32)", frames=T,
          max_abs_gap={"encode": gaps[0], "cross_cache_k": gaps[1], "decode_logits": gaps[2],
                       "decode_train_logits": gaps[3]},
          tol=LM_PARITY_TOL, frontend_levels_equal=levels_equal,
-         greedy_tokens_card=out["cuda"][5].tolist(), greedy_tokens_equal=tokens_equal, ok=ok)
+         greedy_tokens_card=out["cuda"][5].tolist(), greedy_tokens_equal=tokens_equal,
+         k4_fp32_variant_only=k4_fp32, ok=ok)
     if not ok:
         raise SystemExit("the card's reduced whisper leaves the port's CPU path")
 
@@ -1197,6 +1263,7 @@ def phase_vlm_slice(torch, profile: bool = False):
     want = {"pruned_quantize": main_calls["prefill"],
             "flash_attention": cfg.n_layers * main_calls["prefill"],
             "decode_attention": cfg.n_layers * main_calls["decode_step"]}
+    want.update(k4_variants(want["flash_attention"]))
     checks = {
         "prefill_logits_finite": prefill_finite and long_finite,
         "decode_logits_finite": decode_finite,
@@ -1283,6 +1350,7 @@ def phase_audio_slice(torch, profile: bool = False):
     want = {"pruned_quantize": main_calls["encode"],
             "flash_attention": cfg.encoder_layers * main_calls["encode"],
             "decode_attention": 2 * cfg.n_layers * main_calls["decode_step"]}
+    want.update(k4_variants(want["flash_attention"]))
     checks = {
         "encode_finite": bool(torch.isfinite(enc).all()),
         "decode_logits_finite": bool(torch.isfinite(dec).all()),
@@ -1305,9 +1373,12 @@ def phase_audio_slice(torch, profile: bool = False):
 
 
 def build_all(torch) -> None:
-    """Build every kernel library at once: one nvcc per source, in parallel."""
+    """Build every kernel library at once: one nvcc per source, in parallel;
+    then print what ptxas reported for each kernel (registers, static shared
+    memory, spills)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.fused_qat import ops as qops
@@ -1316,16 +1387,114 @@ def build_all(torch) -> None:
     def timed(build):
         t0 = time.perf_counter()
         so = build()
-        return str(so.relative_to(ROOT)), time.perf_counter() - t0
+        return so, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    mods = {"fused_qat": qops, "decode_attn": dops, "flash_attn": fops, "pruned_quant": pq}
-    with ThreadPoolExecutor(len(mods)) as pool:
-        futures = {name: pool.submit(timed, m.build) for name, m in mods.items()}
+    builds = {"fused_qat": qops.build, "decode_attn": dops.build, "flash_attn": fops.build,
+              "flash_attn_tc": fops.build_tc, "pruned_quant": pq.build}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {name: pool.submit(timed, b) for name, b in builds.items()}
         built = {name: f.result() for name, f in futures.items()}
     emit("build", seconds=time.perf_counter() - t0,
-         libraries={n: lib for n, (lib, _) in built.items()},
+         libraries={n: str(so.relative_to(ROOT)) for n, (so, _) in built.items()},
          seconds_each={n: s for n, (_, s) in built.items()})
+    for n, (so, _) in built.items():
+        emit("ptxas", library=n, kernels=_build.ptxas_report(so))
+
+
+DECODE_AB_ROUNDS, DECODE_BLOCK_STEPS = 4, 16  # rounds of 4 blocks (A B B A) of 16 steps
+# (arch, cache length, positions in at the first step): the serving slices' decode
+DECODE_STEP_CASES = (("yi-9b", 4096, 64), ("internvl2-26b", 512, 320),
+                     ("whisper-medium", 1500, 1))
+
+
+def phase_decode_ab(torch, other_src: Path):
+    """Wall time of a decode step at B=4 of each served model at full width
+    and depth, with K5 alternately this checkout's and the one under
+    ``other_src`` (its ``repro_torch/kernels/decode_attn``, loaded beside
+    this one; everything else of the step is this checkout's).  Blocks of
+    DECODE_BLOCK_STEPS steps run in the order other, this, this, other, each
+    timed on the host clock between two synchronisations, in one process on
+    one card: the steps are host-bound, so separate processes (or machines)
+    differ by more than the kernels do.  Weights, caches and tokens are
+    drawn from seeds.  Then 4 steps of each version under the profiler give
+    the device busy time a step and K5's device time a call."""
+    import importlib.util
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.models import build_model, init_cache, transformer
+
+    path = other_src / "repro_torch" / "kernels" / "decode_attn" / "ops.py"
+    spec = importlib.util.spec_from_file_location("other_decode_attn_ops", path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    versions = {"this": dops, "other": other}
+    order = ["other", "this", "this", "other"] * DECODE_AB_ROUNDS
+    try:
+        for arch, S, kv0 in DECODE_STEP_CASES:
+            _free_device(torch)
+            cfg = registry.get(arch)
+            model = build_model(cfg)
+            params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            with torch.inference_mode():
+                cache = init_cache(model, 4, S, "cuda")
+                for n in ("cross_k", "cross_v"):  # whisper's encoder states, drawn
+                    if n in cache:
+                        cache[n].normal_(generator=gen)
+                tok = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+                kv_len = torch.full((4,), kv0, dtype=torch.int32, device="cuda")
+                logits = {}
+                for name, ops in versions.items():  # each K5 builds at its first call
+                    transformer.decode_ops = ops
+                    for i in range(4):
+                        logits[name], _ = model.decode_step(params, tok, cache, kv_len + i)
+                    ops.reset_launch_counts()
+                block_ms = {name: [] for name in versions}
+                for name in order:
+                    transformer.decode_ops = versions[name]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for i in range(DECODE_BLOCK_STEPS):
+                        model.decode_step(params, tok, cache, kv_len + i)
+                    torch.cuda.synchronize()
+                    block_ms[name].append((time.perf_counter() - t0) / DECODE_BLOCK_STEPS * 1e3)
+            n_steps = 2 * DECODE_AB_ROUNDS * DECODE_BLOCK_STEPS
+            calls = {n: ops.LAUNCHES["decode_attention"] / n_steps for n, ops in versions.items()}
+            device = {}
+            for name, ops in versions.items():
+                transformer.decode_ops = ops
+                with torch.inference_mode(), profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for i in range(4):
+                        model.decode_step(params, tok, cache, kv_len + i)
+                    torch.cuda.synchronize()
+                kt = _kernel_table(torch, prof)
+                k5 = [v for n, v in kt.items() if "decode_attn" in n]
+                device[name] = {
+                    "busy_ms_per_step": sum(v[1] for v in kt.values()) / 4e3,
+                    "k5_us_per_call": sum(v[1] for v in k5) / (4 * calls[name]),
+                    "k5_kernels_per_call": sum(v[0] for v in k5) / (4 * calls[name])}
+            gap = float((logits["this"].float() - logits["other"].float()).abs().max())
+            checks = {"logits_finite": all(bool(torch.isfinite(x).all()) for x in logits.values()),
+                      "k5_on_every_layer": set(calls.values()) == {
+                          float(cfg.n_layers * (2 if arch == "whisper-medium" else 1))}}
+            emit("decode_ab", arch=arch, other_src=str(other_src), batch=4, cache_len=S,
+                 kv_len_first=kv0, steps_per_block=DECODE_BLOCK_STEPS, order=order,
+                 block_ms=block_ms,
+                 median_ms={n: statistics.median(b) for n, b in block_ms.items()},
+                 k5_calls_per_step=calls, device=device,
+                 logits_this_vs_other_max_abs=gap, checks=checks,
+                 ok=all(checks.values()))
+            del params, cache, logits
+            if not all(checks.values()):
+                raise SystemExit(f"decode_ab {arch}: {checks}")
+    finally:
+        transformer.decode_ops = dops
 
 
 def main() -> int:
@@ -1334,6 +1503,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import resolve_device
 
@@ -1343,8 +1513,15 @@ def main() -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    profile = "--profile" in sys.argv[1:]
+    if "--decode-ab" in args:
+        phase_decode_ab(torch, Path(args[args.index("--decode-ab") + 1]).resolve())
+        return 0
+    profile = "--profile" in args
     build_all(torch)
+    if "--attn" in args:  # a kernel change's first call: build, check, time, stop
+        phase_attn_kernels(torch)
+        phase_mm_attn_kernels(torch)
+        return 0
     kern = phase_kernels(torch)
     phase_placement(torch)
     phase_parity(torch)
@@ -1383,17 +1560,19 @@ def main() -> int:
             "bound_by": by,
             "library_ms": None,
         })
-    for kname, src, line in (("flash_attention", "flash_attn/csrc/flash_attn.cu",
-                              "src/repro/kernels/flash_attn/flash_attn.py:29"),
-                             ("decode_attention", "decode_attn/csrc/decode_attn.cu",
-                              "src/repro/kernels/decode_attn/decode_attn.py:36")):
+    # bf16 serving runs K4's tensor-core variant; its launches are that variant's
+    for kname, counter, src, line in (
+            ("flash_attention", "flash_attention_tc", "flash_attn/csrc/flash_attn_tc.cu",
+             "src/repro/kernels/flash_attn/flash_attn.py:29"),
+            ("decode_attention", "decode_attention", "decode_attn/csrc/decode_attn.cu",
+             "src/repro/kernels/decode_attn/decode_attn.py:36")):
         main_path = attn[kname]["bfloat16"]  # yi-9b's shapes in its dtype
         rows.append({
             "name": kname,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/{src}",
             "replaces": line,
-            "launches": launches[kname],
+            "launches": launches[counter],
             "max_abs_err": attn[kname]["max_abs_err"],
             "ms": main_path["ms"],
             "plain_ms": main_path["plain_ms"],

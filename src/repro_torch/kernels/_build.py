@@ -4,7 +4,8 @@ Each kernel directory keeps its sources under ``csrc/`` with a plain C
 interface.  They are compiled at first use on the card, for ``sm_90a``,
 into ``src/repro_torch/_build/`` (listed in ``.gitignore``) under a name
 keyed by the sources' content hash, so an edited source never loads a
-stale library.  Nothing is built when a module is imported: the CPU tests
+stale library.  ptxas's report of each kernel's registers, shared memory
+and spills (``-Xptxas -v``) is kept beside it (``ptxas_report``).  Nothing is built when a module is imported: the CPU tests
 import every module and this machine may have no ``nvcc``.
 """
 
@@ -13,17 +14,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "load_library", "ptxas_report"]
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 def _nvcc() -> str:
@@ -54,8 +56,29 @@ def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
                 raise RuntimeError(
                     f"nvcc failed for {name} ({proc.returncode}):\n{proc.stderr}"
                 )
+            so.with_suffix(".ptxas.txt").write_text(proc.stderr)
             os.replace(tmp, so)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     return ctypes.CDLL(str(so))
+
+
+def ptxas_report(so: Path) -> list[dict]:
+    """Per kernel of a built library: registers, static shared memory, spills."""
+    out, name, spill = [], None, (0, 0)
+    for line in Path(so).with_suffix(".ptxas.txt").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append({"kernel": name, "registers": int(m.group(1)),
+                        "static_smem": int(smem.group(1)) if smem else 0,
+                        "spill_stores": spill[0], "spill_loads": spill[1]})
+            name = None
+    return out

@@ -1,4 +1,6 @@
-// Flash-attention forward (prefill), causal or not, for Hopper (sm_90a): K4.
+// Flash-attention forward (prefill), causal or not, fp32, for Hopper (sm_90a):
+// the fp32 variant of K4.  bf16 inputs take the tensor-core kernel in
+// flash_attn_tc.cu; the wrapper picks one of the two by dtype.
 //
 // Replaces the Pallas TPU kernel of the JAX reference,
 // src/repro/kernels/flash_attn/flash_attn.py: _kernel (via
@@ -10,8 +12,8 @@
 //   out[b, i, h] = sum_j softmax_j(s[i, :])[j] * v[b, j, h/G]
 //
 // as an online softmax over tiles of BK keys (running max m, denominator l,
-// numerator acc in fp32), finalised as acc / max(l, 1e-30) and stored in q's
-// dtype, as the Pallas kernel does (q is scaled before the product, as there).
+// numerator acc in fp32), finalised as acc / max(l, 1e-30), as the Pallas
+// kernel does (q is scaled before the product, as there).
 //
 // Design:
 // * Grid (ceil(Sq / BQ), Hq, B): one block per (q tile, query head, batch
@@ -24,26 +26,22 @@
 //   and an 8-row x ceil(d/16)-column block of the accumulator in registers.
 //   Rows are reduced with warp shuffles across the 16 threads that share
 //   them.
-// * Causal skip: the key loop ends at the diagonal of the q tile.  The TPU
-//   kernel runs every tile (its docstring lists skipping as backlog).  A
+// * Causal skip: the key loop ends at the diagonal of the q tile.  A
 //   skipped tile is wholly above the diagonal: every score is -1e30, so
 //   p = 0 and alpha = 1, and each query row has already met key 0 in the
 //   first tile, so its running max is finite.  Skipping changes no value.
 // * Ragged edges (Sq, Sk not multiples of the tiles) are masked here: rows
 //   past Sq load zeros and are not stored; keys past Sk score -1e30.
 //
-// What bounds it on an H100: operations.  At yi-9b's prefill (B = 1,
-// S = 4096, 32 query heads, d = 128) the causal work is 137 GFLOP: 0.139 ms
-// at the bf16 tensor-core peak of 989 TFLOP/s, the bound reported for it.
-// This kernel does its products on the fp32 CUDA cores (bf16 inputs are
-// widened to fp32 in shared memory), whose peak of 67 TFLOP/s puts it at
-// 2.05 ms or more.  wgmma tensor-core products with TMA-fed tiles are a
-// later PR's work.
+// What bounds it on an H100: operations on the fp32 CUDA cores (67 TFLOP/s):
+// 2.05 ms at yi-9b's prefill shape.  The tensor cores cannot give fp32
+// attention within the fp32 gate of 3e-5, so this variant keeps them idle;
+// it serves the fp32 runs (the card-vs-CPU parity checks), not the bf16
+// serving path.
 //
-// Layouts: q/out (B, Sq, Hq, d), k/v (B, Sk, Hkv, d), all contiguous.
-// Types: fp32 or bf16 (all one type), fp32 arithmetic.  d <= 256.
+// Layouts: q/out (B, Sq, Hq, d), k/v (B, Sk, Hkv, d), all contiguous, fp32.
+// d <= 256.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,12 +57,8 @@ constexpr int CJ = 4;    // score columns per thread (BK / 16)
 constexpr int MAX_NC = 16;  // d <= 16 * MAX_NC
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // max / sum over the 16 lanes of a half warp (the threads sharing a row)
 __device__ __forceinline__ float row_max(float v) {
@@ -244,14 +238,10 @@ extern "C" {
 size_t flash_attn_shared_bytes(int d) { return smem_floats(d) * sizeof(float); }
 int flash_attn_max_head_dim(void) { return 16 * MAX_NC; }
 
-// dtype: 0 = float32, 1 = bfloat16.
 int flash_attn(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-               int Hq, int Hkv, int d, int causal, float scale, int dtype, void* stream) {
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, d, causal, scale,
-                           (cudaStream_t)stream);
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, d, causal, scale,
-                                 (cudaStream_t)stream);
+               int Hq, int Hkv, int d, int causal, float scale, void* stream) {
+  return dispatch<float>(q, k, v, out, B, Sq, Sk, Hq, Hkv, d, causal, scale,
+                         (cudaStream_t)stream);
 }
 
 const char* flash_attn_error_string(int err) {

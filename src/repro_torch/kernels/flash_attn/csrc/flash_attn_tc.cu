@@ -1,0 +1,492 @@
+// Flash-attention forward (prefill), bf16, on Hopper's tensor cores (sm_90a): K4.
+//
+// Replaces the Pallas TPU kernel of the JAX reference,
+// src/repro/kernels/flash_attn/flash_attn.py: _kernel (via
+// flash_attention_pallas).  For batch row b, query head h (KV head h / G)
+// and query position i:
+//
+//   s[i, j]   = q[b, i, h] . k[b, j, h/G]                      fp32 sums
+//   s[i, j]   = -1e30 where j >= Sk, or j > i when causal
+//   out[b, i, h] = sum_j softmax_j(scale * s[i, :])[j] * v[b, j, h/G]
+//
+// as an online softmax over tiles of BK keys (running max m, denominator l,
+// numerator acc in fp32), finalised as acc / max(l, 1e-30) and stored in
+// bf16, as the Pallas kernel does.  Two differences, both far inside the
+// bf16 gate of 3e-2: scale * log2(e) is folded into exp2f on the fp32
+// scores (the Pallas kernel scales q first), and the probabilities P are
+// rounded to bf16 before P.V (the JAX package's blocked path offers the
+// same with ModelConfig.flash_p_dtype).  l sums the fp32 probabilities.
+//
+// What bounds it on an H100: operations.  At yi-9b's prefill (B = 1,
+// S = 4096, 32 query heads, d = 128, causal) the work is 137 GFLOP, 0.139 ms
+// at the bf16 tensor-core peak of 989 TFLOP/s.  What the design does:
+//
+// * Both products run on the tensor cores with wgmma (m64n64k16, bf16 in,
+//   fp32 accumulated).  S = Q.K^T reads Q and the K tile from shared memory;
+//   K's rows are contiguous in d, so it is the K-major B operand as it lies.
+//   O += P.V takes P from registers: the S accumulator, exponentiated and
+//   cast to bf16 in place, already has the layout of wgmma's A fragment.
+//   V is the B operand with the transpose bit (its tile is MN-major).
+// * Q, K and V arrive by TMA (cp.async.bulk.tensor, 4-D maps over
+//   (d, heads, positions, batch) encoded on the host each call), with the
+//   128-byte swizzle that the wgmma descriptors name.  A box is 64 columns
+//   wide, so a row of d > 64 is loaded as ceil(d / 64) boxes; columns past
+//   d are zero-filled by TMA: they add nothing to Q.K^T, and those columns
+//   of P.V are never stored.  This is how d = 32, 80 and 160 are handled.
+// * Warp specialisation: one producer warp (its warpgroup drops to 24
+//   registers with setmaxnreg) keeps a ring of K/V stages in flight, each
+//   with a full and an empty mbarrier; two consumer warpgroups (240
+//   registers) own 64 query rows each, BQ = 128 rows a block.
+// * GQA reads KV head h / G through the tensor map; nothing is copied.
+// * Causal: the key loop ends at the q tile's diagonal, a warpgroup skips
+//   the tiles wholly above its own rows, and only the diagonal tile and a
+//   ragged last tile are masked.  The q tiles are launched longest first
+//   (gridDim.z counts down the diagonal), so the long blocks do not finish
+//   last.  Skipping is exact: a skipped tile would give p = 0, alpha = 1.
+// * Ragged edges: rows past Sq are zero-filled on load and not stored; keys
+//   past Sk score -1e30.
+// Left for later: the ping-pong of softmax against the GEMMs between the
+// warpgroups, overlap of the two GEMMs inside a warpgroup, persistent
+// blocks and clusters.
+//
+// Layouts: q/out (B, Sq, Hq, d), k/v (B, Sk, Hkv, d), contiguous, bf16,
+// 16-byte aligned.  d in {32, 64, 80, 128, 160, 256}, one instantiation each.
+
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <stdio.h>
+
+namespace {
+
+constexpr int BQ = 128;       // query rows a block: two consumer warpgroups of 64
+constexpr int BK = 64;        // keys a tile
+constexpr int CONSUMERS = 2;  // consumer warpgroups
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int SMEM_LIMIT = 232448;
+constexpr float NEG = -1e30f;
+
+// error codes of this file, above cudaError_t's range
+constexpr int ERR_NO_ENCODER = 10000;
+constexpr int ERR_ENCODE = 10001;  // + the CUresult
+constexpr int ERR_HEAD_DIM = 20001;
+
+template <int D>
+struct Cfg {
+  static constexpr int DC = (D + 63) / 64;          // 64-column chunks (boxes) of a row
+  static constexpr int Q_BYTES = BQ * 128 * DC;     // chunk c: BQ rows of 128 bytes
+  static constexpr int KV_BYTES = BK * 128 * DC;    // one of K or V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;  // K then V
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256 - Q_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + 256;
+  static_assert(STAGES >= 2, "the K/V ring needs two stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma boundary.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),            \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),    \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),              \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define WG_REGS32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// d (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) . B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_D32
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 registers) . B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Shared memory, from a 1024-byte aligned base: Q (DC chunks of BQ x 128 B)
+// | STAGES x (K: DC chunks of BK x 128 B, V: the same) | mbarriers
+// full[STAGES], empty[STAGES], q.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                     int Sq, int Sk, int Hq, int G, int causal, float scale_log2, int n_qtiles) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t ring = base + C::Q_BYTES;
+  const uint32_t bars = ring + C::STAGES * C::STAGE_BYTES;
+  const uint32_t q_bar = bars + 16 * C::STAGES;
+
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int qt = causal ? n_qtiles - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int q0 = qt * BQ;
+  const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);                              // full: the producer's arrival
+      mbar_init(bars + 8 * (C::STAGES + s), CONSUMERS * 128);  // empty: every consumer thread
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread keeps the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == CONSUMERS * 128) {
+      const int hk = hq / G;
+      mbar_expect_tx(q_bar, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < C::DC; ++c)
+        tma_load_4d(q_s + c * BQ * 128, &qmap, q_bar, 64 * c, hq, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % C::STAGES;
+        const uint32_t lap = t / C::STAGES;
+        if (lap > 0) mbar_wait(bars + 8 * (C::STAGES + s), (lap - 1) & 1);
+        const uint32_t full = bars + 8 * s;
+        const uint32_t k_s = ring + s * C::STAGE_BYTES, v_s = k_s + C::KV_BYTES;
+        mbar_expect_tx(full, C::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < C::DC; ++c) {
+          tma_load_4d(k_s + c * BK * 128, &kmap, full, 64 * c, hk, t * BK, b);
+          tma_load_4d(v_s + c * BK * 128, &vmap, full, 64 * c, hk, t * BK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int row_lo = q0 + wg * 64;
+    const int r0 = row_lo + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+    const int cl = 2 * (lane % 4);                 // and columns cl, cl + 1 of each 8
+    float o[C::DC][32];
+#pragma unroll
+    for (int c = 0; c < C::DC; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+    float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // m in log2 units; l this thread's part
+    mbar_wait(q_bar, 0);
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % C::STAGES;
+      mbar_wait(bars + 8 * s, (t / C::STAGES) & 1);
+      const int k0 = t * BK;
+      if (!causal || k0 <= row_lo + 63) {
+        const uint32_t k_s = ring + s * C::STAGE_BYTES, v_s = k_s + C::KV_BYTES;
+        float sc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+        // S = Q . K^T over the DC chunks of d, 16 columns a step
+        fence_regs(sc);
+        wg_fence();
+#pragma unroll
+        for (int c = 0; c < C::DC; ++c)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(sc,
+                     smem_desc(q_s + c * BQ * 128 + wg * 64 * 128 + kk * 32, 16, 1024),
+                     smem_desc(k_s + c * BK * 128 + kk * 32, 16, 1024), (c | kk) != 0);
+        wg_commit();
+        wg_wait0();
+        fence_regs(sc);
+
+        // scale into log2 units; mask the diagonal tile and a ragged last tile
+        const bool mask = k0 + BK > Sk || (causal && k0 + BK - 1 > row_lo);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = k0 + 8 * j + cl + e;
+            float x0 = sc[4 * j + e] * scale_log2, x1 = sc[4 * j + 2 + e] * scale_log2;
+            if (mask) {
+              if (col >= Sk || (causal && col > r0)) x0 = NEG;
+              if (col >= Sk || (causal && col > r0 + 8)) x1 = NEG;
+            }
+            sc[4 * j + e] = x0;
+            sc[4 * j + 2 + e] = x1;
+          }
+        float mx0 = NEG, mx1 = NEG;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sc[4 * j] = exp2f(sc[4 * j] - mn0);
+          sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mn0);
+          sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mn1);
+          sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mn1);
+          s0 += sc[4 * j] + sc[4 * j + 1];
+          s1 += sc[4 * j + 2] + sc[4 * j + 3];
+        }
+        l0 = l0 * a0 + s0;
+        l1 = l1 * a1 + s1;
+        // P in bf16, as wgmma's A fragments: step kk holds keys 16 kk .. 16 kk + 15
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int c = 0; c < C::DC; ++c) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[c][4 * j] *= a0;
+            o[c][4 * j + 1] *= a0;
+            o[c][4 * j + 2] *= a1;
+            o[c][4 * j + 3] *= a1;
+          }
+          fence_regs(o[c]);
+        }
+        // O += P . V; V's 8-key groups are 1024 bytes apart, 16 keys a step
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int c = 0; c < C::DC; ++c)
+            wgmma_rs(o[c], pa[kk], smem_desc(v_s + c * BK * 128 + kk * 2048, 1024, 1024));
+        wg_commit();
+        wg_wait0();
+#pragma unroll
+        for (int c = 0; c < C::DC; ++c) fence_regs(o[c]);
+      }
+      mbar_arrive(bars + 8 * (C::STAGES + s));
+    }
+
+    const float den0 = fmaxf(quad_sum(l0), 1e-30f), den1 = fmaxf(quad_sum(l1), 1e-30f);
+    const int64_t row_stride = (int64_t)Hq * D;
+    __nv_bfloat16* ob = out + ((int64_t)b * Sq) * row_stride + (int64_t)hq * D;
+#pragma unroll
+    for (int c = 0; c < C::DC; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * c + 8 * j + cl;  // D is even, so col < D covers col + 1
+        if (col < D) {
+          if (r0 < Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + r0 * row_stride + col) =
+                __floats2bfloat162_rn(o[c][4 * j] / den0, o[c][4 * j + 1] / den0);
+          if (r0 + 8 < Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (r0 + 8) * row_stride + col) =
+                __floats2bfloat162_rn(o[c][4 * j + 2] / den1, o[c][4 * j + 3] / den1);
+        }
+      }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous (n, s, h, d) bf16 tensor, innermost first, with
+// boxes of 64 columns x 1 head x ``rows`` positions x 1 batch row.
+int make_map(CUtensorMap* map, const void* ptr, int n, int s, int h, int d, int rows) {
+  EncodeTiled enc = encoder();
+  if (!enc) return ERR_NO_ENCODER;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
+                                 (cuuint64_t)s * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                   strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+           int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap qm, km, vm;
+  int err = make_map(&qm, q, B, Sq, Hq, D, BQ);
+  if (!err) err = make_map(&km, k, B, Sk, Hkv, D, BK);
+  if (!err) err = make_map(&vm, v, B, Sk, Hkv, D, BK);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(flash_attn_tc_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int n_qtiles = (Sq + BQ - 1) / BQ;
+  dim3 grid(Hq, B, n_qtiles);
+  flash_attn_tc_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+      qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, Hq, Hq / Hkv, causal,
+      scale * 1.4426950408889634f, n_qtiles);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory one block takes at head dim d (0 for a dim not instantiated).
+size_t flash_attn_tc_shared_bytes(int d) {
+  switch (d) {
+    case 32: return Cfg<32>::SMEM;
+    case 64: return Cfg<64>::SMEM;
+    case 80: return Cfg<80>::SMEM;
+    case 128: return Cfg<128>::SMEM;
+    case 160: return Cfg<160>::SMEM;
+    case 256: return Cfg<256>::SMEM;
+    default: return 0;
+  }
+}
+
+int flash_attn_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
+                  int Hq, int Hkv, int d, int causal, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (d) {
+    case 32: return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    case 80: return launch<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    case 160: return launch<160>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    default: return ERR_HEAD_DIM;
+  }
+}
+
+const char* flash_attn_tc_error_string(int err) {
+  static char msg[96];
+  if (err == ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found through the runtime";
+  if (err == ERR_HEAD_DIM) return "head dim not instantiated";
+  if (err > ERR_ENCODE && err < ERR_HEAD_DIM) {
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed: CUresult %d", err - ERR_ENCODE);
+    return msg;
+  }
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

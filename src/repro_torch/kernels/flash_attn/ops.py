@@ -5,11 +5,16 @@ package's ``kernels/flash_attn/ops.flash_attention_tpu``: q (B, Sq, Hq, d),
 k/v (B, Sk, Hkv, d) with Hq a multiple of Hkv (GQA); returns
 (B, Sq, Hq, d) in q's dtype.
 
-Kernel: ``csrc/flash_attn.cu`` (CUDA C++ for ``sm_90a``; the note at the top
-of that file says what it replaces, what bounds it and how the design
-answers).  Device rule: a tensor on the CPU takes the plain PyTorch version
-in ``ref``; a tensor on CUDA launches the kernel or raises.  There is no
-fallback between the two.  ``LAUNCHES`` counts kernel launches.
+Two kernels, CUDA C++ for ``sm_90a``, picked by dtype (``variant``), never
+one after the other: bf16 takes ``csrc/flash_attn_tc.cu`` (wgmma on the
+tensor cores, TMA-fed K/V; head dims in ``TC_HEAD_DIMS``, others raise),
+fp32 takes ``csrc/flash_attn.cu`` (the CUDA cores: the tensor cores cannot
+hold fp32 attention to 3e-5).  The note at the top of each file says what
+it replaces, what bounds it and how the design answers.  Device rule: a
+tensor on the CPU takes the plain PyTorch version in ``ref``; a tensor on
+CUDA launches a kernel or raises.  There is no fallback between them.
+``LAUNCHES`` counts launches: ``flash_attention`` every call, and
+``flash_attention_tc`` / ``flash_attention_fp32`` the variant that ran.
 """
 
 from __future__ import annotations
@@ -23,13 +28,17 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn import ref
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "build", "flash_attention"]
+__all__ = ["LAUNCHES", "TC_HEAD_DIMS", "reset_launch_counts", "build", "build_tc", "variant",
+           "flash_attention"]
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"]
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [CSRC / "flash_attn.cu"]
+TC_SOURCES = [CSRC / "flash_attn_tc.cu"]
 MAX_SHARED_BYTES = 232448  # 227 KB, the most one Hopper block may opt into
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
+TC_HEAD_DIMS = (32, 64, 80, 128, 160, 256)  # the tensor-core kernel's instantiations
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_fp32": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 
@@ -42,7 +51,7 @@ def reset_launch_counts() -> None:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load_library("flash_attn", SOURCES)
-    lib.flash_attn.argtypes = [_vp] * 4 + [_int] * 7 + [ctypes.c_float, _int, _vp]
+    lib.flash_attn.argtypes = [_vp] * 4 + [_int] * 7 + [ctypes.c_float, _vp]
     lib.flash_attn.restype = _int
     lib.flash_attn_shared_bytes.argtypes = [_int]
     lib.flash_attn_shared_bytes.restype = ctypes.c_size_t
@@ -53,9 +62,37 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_tc() -> ctypes.CDLL:
+    lib = _build.load_library("flash_attn_tc", TC_SOURCES)
+    lib.flash_attn_tc.argtypes = [_vp] * 4 + [_int] * 7 + [ctypes.c_float, _vp]
+    lib.flash_attn_tc.restype = _int
+    lib.flash_attn_tc_shared_bytes.argtypes = [_int]
+    lib.flash_attn_tc_shared_bytes.restype = ctypes.c_size_t
+    lib.flash_attn_tc_error_string.argtypes = [_int]
+    lib.flash_attn_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build() -> Path:
-    """Build (or find) the kernel's shared library; returns its path."""
+    """Build (or find) the fp32 kernel's shared library; returns its path."""
     return Path(_lib()._name)
+
+
+def build_tc() -> Path:
+    """Build (or find) the bf16 tensor-core kernel's shared library; returns its path."""
+    return Path(_lib_tc()._name)
+
+
+def variant(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim launches: "tc" or "fp32"."""
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype == torch.bfloat16:
+        if d not in TC_HEAD_DIMS:
+            raise ValueError(f"bf16 head dim {d} is not one of the kernel's {TC_HEAD_DIMS}")
+        return "tc"
+    raise TypeError(f"no kernel for {dtype}")
 
 
 def _check(q, k, v) -> tuple[int, ...]:
@@ -86,22 +123,35 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the kernel")
-    lib = _lib()
-    if not (1 <= B <= 65535 and 1 <= Hq <= 65535 and Sq >= 1 and Sk >= 1):
+    if not (1 <= B <= 65535 and 1 <= Hq and Sq >= 1 and Sk >= 1):
         raise ValueError(f"launch out of range: B={B} Sq={Sq} Sk={Sk} Hq={Hq}")
-    if d > lib.flash_attn_max_head_dim():
-        raise ValueError(f"head dim {d} exceeds the kernel's {lib.flash_attn_max_head_dim()}")
-    need = lib.flash_attn_shared_bytes(d)
+    kind = variant(q.dtype, d)
+    out = torch.empty_like(q)
+    scale = 1.0 / d ** 0.5
+    if kind == "tc":
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the tensor-core kernel's TMA needs 16-byte aligned q, k and v")
+        if -(-Sq // 128) > 65535:
+            raise ValueError(f"Sq={Sq} needs more than 65535 q tiles")
+        lib, fn, err_str = _lib_tc(), "flash_attn_tc", "flash_attn_tc_error_string"
+        need = lib.flash_attn_tc_shared_bytes(d)
+    else:
+        if Hq > 65535:
+            raise ValueError(f"launch out of range: Hq={Hq}")
+        lib, fn, err_str = _lib(), "flash_attn", "flash_attn_error_string"
+        if d > lib.flash_attn_max_head_dim():
+            raise ValueError(f"head dim {d} exceeds the kernel's {lib.flash_attn_max_head_dim()}")
+        need = lib.flash_attn_shared_bytes(d)
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"d={d} needs {need} bytes of shared memory a block")
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, d, int(causal), 1.0 / d ** 0.5, DTYPES[q.dtype], stream,
+            B, Sq, Sk, Hq, Hkv, d, int(causal), scale, stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attn launch failed: {lib.flash_attn_error_string(err).decode()}")
+        raise RuntimeError(f"{fn} launch failed: {getattr(lib, err_str)(err).decode()}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{kind}"] += 1
     return out

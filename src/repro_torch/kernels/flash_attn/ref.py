@@ -5,13 +5,18 @@ the model-layout wrapper of ``kernels/flash_attn/ops.py``: q (B, Sq, Hq, d),
 k/v (B, Sk, Hkv, d); the GQA group of query head ``h`` reads KV head
 ``h // G``.  Full fp32 softmax, causal mask ``qpos >= kpos`` with no offset,
 output in q's dtype.
+
+``flash_attention_tc_emulation`` repeats on the CPU the numerics of the
+bf16 tensor-core kernel (``csrc/flash_attn_tc.cu``): fp32 scores, the
+online softmax over tiles of 64 keys in log2 units, and P rounded to bf16
+before P.V.  Only the tests call it; no path of the port does.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref"]
+__all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_tc_emulation"]
 
 NEG_INF = -1e30
 
@@ -31,3 +36,38 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, vt).transpose(1, 2).to(q.dtype)
+
+
+def flash_attention_tc_emulation(q, k, v, causal: bool = True, block_k: int = 64,
+                                 p_dtype=torch.bfloat16) -> torch.Tensor:
+    """The tensor-core K4's arithmetic, tile by tile: s = q.k in fp32, scaled
+    by d^-1/2 * log2(e) into log2 units, masked to -1e30, exp2 against the
+    running max; l sums the fp32 p, and P.V takes p rounded to ``p_dtype``."""
+    d = q.shape[-1]
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).to(torch.float32)                    # (B, Hq, Sq, d)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).to(torch.float32)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).to(torch.float32)
+    Sq, Sk = qt.shape[2], kt.shape[2]
+    scale_log2 = (1.0 / d ** 0.5) * 1.4426950408889634
+    qpos = torch.arange(Sq)[:, None]
+    m = torch.full(qt.shape[:3] + (1,), NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qt)
+    for k0 in range(0, Sk, block_k):
+        kpos = torch.arange(k0, k0 + block_k)[None, :]
+        kb = kt[:, :, k0:k0 + block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", qt, kb) * scale_log2
+        s = torch.nn.functional.pad(s, (0, block_k - s.shape[-1]), value=NEG_INF)
+        valid = kpos < Sk
+        if causal:
+            valid = valid & (qpos >= kpos)
+        s = s.masked_fill(~valid, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        pv = p[..., :kb.shape[2]].to(p_dtype).to(torch.float32)
+        acc = alpha * acc + torch.einsum("bhqk,bhkd->bhqd", pv, vt[:, :, k0:k0 + block_k])
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).transpose(1, 2).to(q.dtype)
