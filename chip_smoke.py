@@ -12,6 +12,12 @@
                                       # served models, K5 alternately this checkout's
                                       # and the one under DIR (another checkout's src,
                                       # e.g. the parent commit's); no result lines
+    python3 chip_smoke.py --kernel-ab DIR
+                                      # build, phases 3 and 9 (K2/K3 and K1 checked
+                                      # and timed), then K1 and K3 timed in turns
+                                      # against DIR's (e.g. parent_tree/src), both
+                                      # built in this process, and whisper-medium's
+                                      # encode with either K1; no result lines
 
 Phases, one JSON line each; any failure ends the run with a nonzero exit:
 
@@ -19,12 +25,19 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
 2. build        every kernel library, built with nvcc for sm_90a from the
                 repository's sources, one nvcc per source, all at once; then
                 one ``ptxas`` line a library: each kernel's registers, static
-                shared memory and spills, from ``nvcc -Xptxas -v``.
+                shared memory and spills, from ``nvcc -Xptxas -v``; a spill in
+                a kernel of K1's register path fails the run.
 3. kernels      K2 (forward) and K3 (backward) of the fused pruned-ADC QAT layer
                 against their plain PyTorch versions on the card, at the main
                 path's shapes (P=24 rows, C=21 inputs, F=5 hidden, B=128 and
-                the 638-sample test set) and at the comparator edge cases; times
-                by CUDA events.
+                the 638-sample test set) and at the comparator edge cases; K3's
+                dw bit-equal to the emulation of its order of summation, the
+                same bits twice and for a row alone, with and without dx;
+                times by CUDA events, K3 with dx and without (as training
+                calls it).  The profiler's count of device kernels a K3 call
+                (one) comes after phase 6 (``k3_profiler``): the profiler
+                leaves kernel launches slower on the host, and phases 4-6
+                time a host-bound loop.
 4. placement    a row trained alone and inside a batch of 24 gives the same bits;
                 two runs of one batch give the same bits.
 5. parity       8 cardio genomes from one draw, on the card and through the
@@ -50,10 +63,13 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 K1 (the pruned flash-ADC comparator bank) against its plain
                 version, tolerance 0, at internvl2-26b's patch shape (4 x 256 x
                 6144) and whisper's frame shape (4 x 1500 x 1024) with all-ones,
-                random and level-0-only masks, at ragged rows and channels, with
-                NaN, +-inf, negative, >= vref and on-threshold inputs; times by
-                the profiler beside the plain version, ``torch.searchsorted``
-                (the library yardstick) and the bound.
+                random and level-0-only masks, at ragged rows and channels, at
+                every bank width N in K1_BITS on an odd and an even C (each
+                template instance and the generic loop), on an x that is not
+                8-byte aligned, with NaN, +-inf, negative, >= vref and
+                on-threshold inputs; times by the profiler beside the plain
+                version, ``torch.searchsorted`` (the library yardstick) and the
+                bound.
 10. mm_attn_kernels
                 K4 and K5 against their plain versions in bf16 at the shapes
                 internvl2-26b (48/8 heads, d 128) and whisper-medium (16/16
@@ -160,25 +176,46 @@ def device_ms(torch, fn, n: int = 50, repeats: int = 7) -> float:
     return statistics.median(times)
 
 
+PROFILER_LOST = 2  # kernel records a profiler session may lose (see _profiled_kernels)
+
+
+def _profiled_kernels(torch, fn, n: int, match: str) -> list:
+    """The device kernel events whose name holds ``match`` over n calls of
+    ``fn`` under the profiler.
+
+    Once a process has run a few profiler sessions, a session can lose the
+    record of a kernel: on an NVIDIA H100 80GB HBM3 runs of this script saw
+    19 of 20 calls' kernels, always one short, and 0 of 20 in a session of
+    under a millisecond.  A session therefore starts with a throwaway kernel
+    (a short ``torch.cuda._sleep``, its records left out) and a wait, which
+    ended the empty sessions, and the callers accept up to PROFILER_LOST
+    missing records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name
+            and "spin_kernel" not in e.name]
+
+
 def kernel_ms(torch, fn, kernel: str, n: int = 20) -> float:
     """Median device time, in ms, of the kernel named ``kernel`` over n calls
     of ``fn``, from the profiler's device events.  For a wrapper that reads an
     input on the host before it launches (K5 checks kv_len), so the stream
     cannot be kept busy and CUDA events would time the host's round trip too.
     """
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
-    if len(times) != n:
-        raise SystemExit(f"the profiler saw {len(times)} launches of {kernel}, not {n}")
-    return statistics.median(times) / 1e3
+    ev = _profiled_kernels(torch, fn, n, kernel)
+    if not n - PROFILER_LOST <= len(ev) <= n:
+        raise SystemExit(f"the profiler saw {len(ev)} launches of {kernel}, not {n}")
+    return statistics.median(e.time_range.elapsed_us() for e in ev) / 1e3
 
 
 K5_KERNEL = "decode_attn_split"  # either K5 kernel, bf16 or fp32: one launch a call
@@ -209,14 +246,19 @@ def kernel_inputs(torch, B: int, seed: int):
     return as_dev(x), thr, ids, as_dev(w), as_dev(b), as_dev(g)
 
 
-def bound_ms(B: int, backward: bool) -> tuple[float, str]:
-    """Least time of one call at (P, B): bytes over HBM rate vs fp32 ops over peak."""
-    reads = P * B * C * 4 + 2 * P * C * T * 4 + P * C * F * 4
+def bound_ms(B: int, backward: bool, need_dx: bool = True) -> tuple[float, str]:
+    """Least time of one call at (P, B): bytes over HBM rate vs fp32 ops over peak.
+    Without dx (training) the backward neither reads w nor writes dx nor forms
+    dx's products."""
+    reads = P * B * C * 4 + 2 * P * C * T * 4
     bank_ops = P * B * C * (2 * T + 3)  # compare + select per threshold, dequant
+    if not backward or need_dx:
+        reads += P * C * F * 4                       # w
     if backward:
         reads += P * B * F * 4                       # g
-        writes = P * B * C * 4 + P * C * F * 4       # dx, dw
-        ops = bank_ops + 2 * (2 * P * B * C * F)     # dx and dw products
+        n_products = 2 if need_dx else 1             # dx and dw, or dw alone
+        writes = P * B * C * 4 * (n_products - 1) + P * C * F * 4
+        ops = bank_ops + n_products * (2 * P * B * C * F)
     else:
         reads += P * F * 4                           # bias
         writes = P * B * F * 4
@@ -230,7 +272,26 @@ def roofline(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_kernels(torch, fn, n: int = 20, match: str = "") -> dict:
+    """Device kernels of one ``fn()`` call, from the profiler over n calls: the
+    records seen, their names, how many kernels a call (the records over n,
+    rounded: a lost record cannot turn one into two), and their summed device
+    time a call (the median time of each name, times its count a call, in
+    us).  Only kernels whose name holds ``match`` count."""
+    by_name: dict[str, list] = {}
+    for e in _profiled_kernels(torch, fn, n, match):
+        by_name.setdefault(e.name[:80], []).append(e.time_range.elapsed_us())
+    seen = sum(len(v) for v in by_name.values())
+    return {"records": seen, "calls": n, "names": sorted(by_name),
+            "kernels_per_call": round(seen / n),
+            "kernel_us_per_call": sum(round(len(v) / n) * statistics.median(v)
+                                      for v in by_name.values())}
+
+
 def phase_kernels(torch):
+    """K2 and K3 against their plain versions (and K3's dw against the emulation
+    of its order of summation, bit for bit), K3 with and without dx; a row alone
+    equals the same row in the batch, two runs give the same bits; times."""
     from repro_torch.kernels.fused_qat import ops, ref
 
     out = {}
@@ -243,8 +304,13 @@ def phase_kernels(torch):
         if {k: ops.LAUNCHES[k] - before[k] for k in before} != {
                 "fused_qat_forward": 1, "fused_qat_backward": 1}:
             raise SystemExit(f"launch counters did not count one launch each: {ops.LAUNCHES}")
+        no_dx, dw_train = ops.fused_backward(x, thr, ids, w, g, SCALE, need_dx=False)
+        dx2, dw2 = ops.fused_backward(x, thr, ids, w, g, SCALE)
+        alone = [ops.fused_backward(x[p:p + 1], thr[p:p + 1], ids[p:p + 1], w[p:p + 1],
+                                    g[p:p + 1], SCALE)[1][0] for p in (0, P // 2, P - 1)]
         y_ref = ref.fused_forward_tables(x, thr, ids, w, b, SCALE)
         dx_ref, dw_ref = ref.fused_backward_tables(x, thr, ids, w, g, SCALE)
+        dw_emul = ref.fused_backward_emulation(x, thr, ids, w, g, SCALE)[1]
         # forward and dx: 21- and 5-term fp32 sums, the reference's 1-ulp bound
         fwd_ok = torch.allclose(y, y_ref, rtol=1e-6, atol=1e-6)
         dx_ok = torch.allclose(dx, dx_ref, rtol=1e-6, atol=1e-6)
@@ -253,7 +319,16 @@ def phase_kernels(torch):
         h = ref.dequant_ste_tables(x, thr, ids, SCALE)
         dw_tol = B * 2.0 ** -23 * torch.matmul(h.abs().transpose(1, 2), g.abs())
         dw_err = (dw - dw_ref).abs()
-        dw_ok = bool((dw_err <= dw_tol).all())
+        checks = {
+            "forward": bool(fwd_ok), "dx": bool(dx_ok), "dw": bool((dw_err <= dw_tol).all()),
+            "dw_equals_emulated_order": bool(torch.equal(dw, dw_emul)),
+            "no_dx_when_not_asked": no_dx is None and bool(torch.equal(dw_train, dw)),
+            "same_bits_twice": bool(torch.equal(dx2, dx)) and bool(torch.equal(dw2, dw)),
+            "row_alone_equals_batch": all(
+                bool(torch.equal(a, dw[p])) for a, p in zip(alone, (0, P // 2, P - 1))),
+        }
+        bwd = lambda need_dx: (  # noqa: E731
+            lambda: ops.fused_backward(x, thr, ids, w, g, SCALE, need_dx=need_dx))
         rec = {
             "B": B,
             "forward_max_abs_err": float((y - y_ref).abs().max()),
@@ -263,18 +338,41 @@ def phase_kernels(torch):
             "forward_ms": device_ms(torch, lambda: ops.fused_forward(x, thr, ids, w, b, SCALE)),
             "forward_plain_ms": device_ms(
                 torch, lambda: ref.fused_forward_tables(x, thr, ids, w, b, SCALE)),
-            "backward_ms": device_ms(
-                torch, lambda: ops.fused_backward(x, thr, ids, w, g, SCALE)),
+            "backward_ms": device_ms(torch, bwd(True)),
+            "backward_no_dx_ms": device_ms(torch, bwd(False)),
             "backward_plain_ms": device_ms(
                 torch, lambda: ref.fused_backward_tables(x, thr, ids, w, g, SCALE)),
+            "backward_no_dx_plain_ms": device_ms(
+                torch, lambda: ref.fused_backward_tables(x, thr, ids, w, g, SCALE, False)),
             "forward_bound_ms": bound_ms(B, False)[0],
             "backward_bound_ms": bound_ms(B, True)[0],
+            "backward_no_dx_bound_ms": bound_ms(B, True, need_dx=False)[0],
         }
-        emit("kernels", **rec, ok=bool(fwd_ok and dx_ok and dw_ok))
-        if not (fwd_ok and dx_ok and dw_ok):
-            raise SystemExit(f"kernel disagrees with its plain version at B={B}: {rec}")
+        emit("kernels", **rec, checks=checks, ok=all(checks.values()))
+        if not all(checks.values()):
+            raise SystemExit(f"K2/K3 checks failed at B={B}: {checks}")
         out[B] = rec
     return out
+
+
+def phase_k3_profiler(torch) -> None:
+    """The profiler's count of device kernels a K3 call, with and without dx,
+    at B = 128 and 638: one.  Run after the co-design slice: once the
+    profiler has run, kernel launches in the process cost the host more, and
+    the slice's step times would carry that."""
+    from repro_torch.kernels.fused_qat import ops
+
+    for B in (128, 638):
+        x, thr, ids, w, _, g = kernel_inputs(torch, B, seed=B)
+        prof = {name: device_kernels(torch, lambda nd=need_dx: ops.fused_backward(
+                    x, thr, ids, w, g, SCALE, need_dx=nd))
+                for name, need_dx in (("dx", True), ("no_dx", False))}
+        ok = all(v["kernels_per_call"] == 1 and v["records"] >= v["calls"] - PROFILER_LOST
+                 and all("fused_qat_bwd_kernel" in nm for nm in v["names"])
+                 for v in prof.values())
+        emit("k3_profiler", B=B, **prof, one_device_kernel_a_call=ok, ok=ok)
+        if not ok:
+            raise SystemExit(f"K3 is not one device kernel a call at B={B}: {prof}")
 
 
 def _cardio():
@@ -832,25 +930,39 @@ K1_RAGGED = [(1, 6144), (7, 6144), (1025, 6144), (1024, 21), (1024, 6143)]
 K1_EDGES = [math.nan, math.inf, -math.inf, -0.5, -0.0, 1.0, 1.5, 7.0]
 
 
-def k1_inputs(torch, shape, mask_kind: str, seed: int):
-    """fp32 x of ``shape`` with every threshold and the edge inputs planted, and a mask."""
+# K1's bank widths (N bits, 2^N - 1 comparators): N <= 4 on its register path
+# (one template instance a width), N = 5 and 8 on its generic loop; at ragged
+# rows with an odd C (one channel a thread) and an even C (two)
+K1_BITS = (1, 2, 3, 4, 5, 8)
+K1_BITS_SHAPES = [(1025, 6143), (1025, 6142)]
+
+
+def k1_inputs(torch, shape, mask_kind: str, seed: int, n_bits: int = 4, offset: int = 0):
+    """fp32 x of ``shape`` with every threshold and the edge inputs planted, and a
+    mask.  ``offset`` > 0 puts x that many floats into its buffer (a view whose
+    data is not 8-byte aligned)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     C = shape[-1]
+    n = 1 << n_bits
     x = rng.uniform(-0.1, 1.1, shape).astype(np.float32)
     flat = x.reshape(-1, C)
-    k = min(flat.shape[0], 16)
-    flat[:k, 0] = np.arange(16, dtype=np.float32)[:k] / 16  # exactly on each comparator
+    k = min(flat.shape[0], n)
+    flat[:k, 0] = np.arange(n, dtype=np.float32)[:k] / n  # exactly on each comparator
     for i, e in enumerate(K1_EDGES):
         flat[-1 - (i % flat.shape[0]), (C // 2 + i) % C] = e
     if mask_kind == "full":
-        mask = np.ones((C, 16), bool)
+        mask = np.ones((C, n), bool)
     elif mask_kind == "level0":
-        mask = np.zeros((C, 16), bool)
+        mask = np.zeros((C, n), bool)
     else:
-        mask = rng.uniform(size=(C, 16)) < rng.uniform(0.1, 1.0, (C, 1))
-    return torch.from_numpy(x).to("cuda"), torch.from_numpy(mask).to("cuda")
+        mask = rng.uniform(size=(C, n)) < rng.uniform(0.1, 1.0, (C, 1))
+    xt = torch.from_numpy(x).to("cuda")
+    if offset:
+        buf = torch.empty(x.size + offset, dtype=torch.float32, device="cuda")
+        xt = buf[offset:].view(shape).copy_(xt)
+    return xt, torch.from_numpy(mask).to("cuda")
 
 
 def k1_bound(B: int, C: int, T: int = 15) -> tuple[float, str]:
@@ -861,25 +973,34 @@ def k1_bound(B: int, C: int, T: int = 15) -> tuple[float, str]:
 
 
 def phase_frontend_kernel(torch):
+    """K1 against its plain version, tolerance 0: the served shapes with three
+    masks, ragged shapes, every bank width (N in K1_BITS), an unaligned x; one
+    launch a call; times at the served shapes beside plain, searchsorted and
+    the bound."""
     from repro_torch.kernels.pruned_quant import ops as pq
     from repro_torch.kernels.pruned_quant import ref as pq_ref
 
     res = {}
-    cases = [(s, m) for s in (VLM_PATCHES, AUDIO_FRAMES) for m in ("full", "random", "level0")]
-    cases += [(s, "random") for s in K1_RAGGED]
+    cases = [(s, m, 4, 0) for s in (VLM_PATCHES, AUDIO_FRAMES) for m in ("full", "random", "level0")]
+    cases += [(s, "random", 4, 0) for s in K1_RAGGED]
+    cases += [(s, "random", n, 0) for s in K1_BITS_SHAPES for n in K1_BITS]
+    cases += [((1025, 6144), "random", 4, 1)]  # even C, x not 8-byte aligned: one channel a thread
     max_err = 0
-    for i, (shape, mask_kind) in enumerate(cases):
-        x, mask = k1_inputs(torch, shape, mask_kind, seed=100 + i)
+    for i, (shape, mask_kind, n_bits, offset) in enumerate(cases):
+        x, mask = k1_inputs(torch, shape, mask_kind, seed=100 + i, n_bits=n_bits, offset=offset)
         n0 = pq.LAUNCHES["pruned_quantize"]
-        out = pq.pruned_quantize(x, mask)
+        out = pq.pruned_quantize(x, mask, n_bits)
         torch.cuda.synchronize()
         counted = pq.LAUNCHES["pruned_quantize"] - n0 == 1
-        thr, ids = pq_ref.make_tables(mask, 4)
+        thr, ids = pq_ref.make_tables(mask, n_bits)
         C = shape[-1]
         xf = x.reshape(-1, C)
         want = pq_ref.pruned_quantize_ref(xf, thr, ids).reshape(shape)
         equal = bool(torch.equal(out, want)) and out.dtype == torch.int32
+        plan = pq.launch_plan(xf.shape[0], C, aligned=xf.data_ptr() % 8 == 0)
         rec = {"kernel": "pruned_quantize", "shape": list(shape), "mask": mask_kind,
+               "n_bits": n_bits, "x_offset_floats": offset, "channels_a_thread": plan.width,
+               "grid": [plan.grid_x, plan.grid_y], "rows_per_block": plan.rows_per_block,
                "max_abs_err": int((out - want).abs().max()), "tol": 0,
                "levels_seen": int(torch.unique(out).numel())}
         if mask_kind == "full" and shape in (VLM_PATCHES, AUDIO_FRAMES):
@@ -895,6 +1016,7 @@ def phase_frontend_kernel(torch):
                 plain_ms=device_ms(torch, lambda: pq_ref.pruned_quantize_ref(xf, thr, ids)),
                 library_ms=device_ms(torch, lib), library_equal_on_finite_inputs=sorted_ok,
                 bound_ms=bms, bound_by=by)
+            rec["share_of_bound"] = bms / rec["ms"]
             res["vlm" if shape == VLM_PATCHES else "audio"] = rec
         max_err = max(max_err, rec["max_abs_err"])
         emit("frontend_kernel", **rec, launch_counted=counted, ok=equal and counted)
@@ -1399,7 +1521,31 @@ def build_all(torch) -> None:
          libraries={n: str(so.relative_to(ROOT)) for n, (so, _) in built.items()},
          seconds_each={n: s for n, (_, s) in built.items()})
     for n, (so, _) in built.items():
-        emit("ptxas", library=n, kernels=_build.ptxas_report(so))
+        report = _build.ptxas_report(so)
+        emit("ptxas", library=n, kernels=report)
+        if n == "pruned_quant":
+            # K1's register path (RegBank<15, W>, N = 4, one kernel for each
+            # W) keeps its comparator tables in registers: a spill would put
+            # them back in memory
+            spills = {k["kernel"]: k["spill_stores"] + k["spill_loads"] for k in report
+                      if "RegBank" in k["kernel"]}
+            if len(spills) != 2 or any(spills.values()):
+                raise SystemExit(f"K1's register-path kernels spill or are missing: {spills}")
+
+
+def _load_ops(path: Path, name: str):
+    """Import the ops module of another checkout's kernel beside this one's
+    (once: a second call returns the module the first made)."""
+    import importlib.util
+
+    if name in sys.modules:
+        return sys.modules[name]
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # dataclasses look their module up while they are made
+    spec.loader.exec_module(mod)
+    return mod
 
 
 DECODE_AB_ROUNDS, DECODE_BLOCK_STEPS = 4, 16  # rounds of 4 blocks (A B B A) of 16 steps
@@ -1419,18 +1565,14 @@ def phase_decode_ab(torch, other_src: Path):
     differ by more than the kernels do.  Weights, caches and tokens are
     drawn from seeds.  Then 4 steps of each version under the profiler give
     the device busy time a step and K5's device time a call."""
-    import importlib.util
-
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import registry
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.models import build_model, init_cache, transformer
 
-    path = other_src / "repro_torch" / "kernels" / "decode_attn" / "ops.py"
-    spec = importlib.util.spec_from_file_location("other_decode_attn_ops", path)
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
+    other = _load_ops(other_src / "repro_torch" / "kernels" / "decode_attn" / "ops.py",
+                      "other_decode_attn_ops")
     versions = {"this": dops, "other": other}
     order = ["other", "this", "this", "other"] * DECODE_AB_ROUNDS
     try:
@@ -1497,6 +1639,131 @@ def phase_decode_ab(torch, other_src: Path):
         transformer.decode_ops = dops
 
 
+AB_ROUNDS = 4  # rounds of 4 blocks (other, this, this, other) in --kernel-ab
+
+
+def phase_kernel_ab(torch, other_src: Path):
+    """K1 and K3 of this checkout against those of ``other_src`` (another
+    checkout's src, e.g. the parent commit's), both built from their own
+    sources and loaded in one process on one card.  Each case runs in blocks,
+    other, this, this, other, AB_ROUNDS times: a block is the CUDA-event time
+    of a call (device_ms, the stream kept busy) and, from the profiler, the
+    device kernels a call and their summed time.  Cases: K1 at internvl2-26b's
+    patch and whisper-medium's frame shapes (full banks; the event time holds
+    the wrapper's table build, the profiler's the kernel alone), K3 at the
+    training shape with dx (what earlier PRs timed) and without (what training
+    calls).  Both versions are first held against the plain versions."""
+    from repro_torch.kernels.fused_qat import ops as qops
+    from repro_torch.kernels.fused_qat import ref as qref
+    from repro_torch.kernels.pruned_quant import ops as pq
+    from repro_torch.kernels.pruned_quant import ref as pq_ref
+
+    kdir = other_src / "repro_torch" / "kernels"
+    versions = {
+        "this": (pq, qops),
+        "other": (_load_ops(kdir / "pruned_quant" / "ops.py", "other_pruned_quant_ops"),
+                  _load_ops(kdir / "fused_qat" / "ops.py", "other_fused_qat_ops")),
+    }
+    cases = {}
+    for label, shape in (("k1_internvl2", VLM_PATCHES), ("k1_whisper", AUDIO_FRAMES)):
+        x, mask = k1_inputs(torch, shape, "full", seed=7)
+        thr, ids = pq_ref.make_tables(mask, N_BITS)
+        want = pq_ref.pruned_quantize_ref(x.reshape(-1, shape[-1]), thr, ids).reshape(shape)
+        cases[label] = ({n: (lambda m=m[0], x=x, mask=mask: m.pruned_quantize(x, mask))
+                         for n, m in versions.items()}, "pruned_quant", want, None)
+    x, thr, ids, w, _, g = kernel_inputs(torch, 128, seed=128)
+    _, dw_ref = qref.fused_backward_tables(x, thr, ids, w, g, SCALE)
+    h = qref.dequant_ste_tables(x, thr, ids, SCALE)
+    dw_tol = 128 * 2.0 ** -23 * torch.matmul(h.abs().transpose(1, 2), g.abs())
+    for label, need_dx in (("k3_training_no_dx", False), ("k3_with_dx", True)):
+        cases[label] = ({n: (lambda m=m[1], nd=need_dx: m.fused_backward(
+            x, thr, ids, w, g, SCALE, need_dx=nd)) for n, m in versions.items()},
+            "", dw_ref, dw_tol)
+    order = ["other", "this", "this", "other"] * AB_ROUNDS
+    for label, (fns, match, want, tol) in cases.items():
+        checks = {}
+        for n, fn in fns.items():  # builds each version's library at its first call
+            got = fn()
+            torch.cuda.synchronize()
+            if tol is None:
+                checks[f"{n}_equals_plain"] = bool(torch.equal(got, want))
+            else:
+                checks[f"{n}_within_bound"] = bool(((got[1] - want).abs() <= tol).all())
+        blocks = {n: {"event_ms": [], "kernel_us": [], "kernels_per_call": []} for n in fns}
+        for n in order:
+            blocks[n]["event_ms"].append(device_ms(torch, fns[n], n=50, repeats=3))
+            prof = device_kernels(torch, fns[n], n=20, match=match)
+            blocks[n]["kernel_us"].append(prof["kernel_us_per_call"])
+            blocks[n]["kernels_per_call"].append(prof["kernels_per_call"])
+        med = {n: {k: statistics.median(v) for k, v in b.items()} for n, b in blocks.items()}
+        emit("kernel_ab", case=label, other_src=str(other_src), order=order, blocks=blocks,
+             median=med,
+             other_over_this_kernel=med["other"]["kernel_us"] / med["this"]["kernel_us"],
+             other_over_this_event=med["other"]["event_ms"] / med["this"]["event_ms"],
+             checks=checks, ok=all(checks.values()))
+        if not all(checks.values()):
+            raise SystemExit(f"kernel_ab {label}: {checks}")
+
+
+ENCODE_AB_CALLS = 4  # encodes a block in --kernel-ab's whisper case
+
+
+def phase_encode_ab(torch, other_src: Path):
+    """Wall time of whisper-medium's ``encode`` (B=4 x 1500 frames, full width
+    and depth, bf16), with K1 alternately this checkout's and the one under
+    ``other_src``; everything else of the call is this checkout's.  Blocks of
+    ENCODE_AB_CALLS calls run other, this, this, other, AB_ROUNDS times, each
+    timed on the host clock between two synchronisations, in one process on
+    one card.  K1 is bit-equal to its plain version in both, so both give the
+    same encoder states, bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.core import frontend
+    from repro_torch.kernels.pruned_quant import ops as pq
+    from repro_torch.models import build_model, whisper
+
+    _free_device(torch)
+    versions = {"this": pq, "other": _load_ops(
+        other_src / "repro_torch" / "kernels" / "pruned_quant" / "ops.py",
+        "other_pruned_quant_ops")}
+    cfg = registry.get("whisper-medium")
+    params = build_model(cfg).init_params(torch.Generator(device="cuda").manual_seed(0))
+    frames = torch.rand(AUDIO_FRAMES, generator=torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    order = ["other", "this", "this", "other"] * AB_ROUNDS
+    try:
+        with torch.inference_mode():
+            enc = {}
+            for name, ops in versions.items():  # each K1 builds at its first call
+                frontend.pq_ops = ops
+                enc[name] = whisper.encode(params, frames, cfg)
+                ops.reset_launch_counts()
+            block_ms = {name: [] for name in versions}
+            for name in order:
+                frontend.pq_ops = versions[name]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(ENCODE_AB_CALLS):
+                    whisper.encode(params, frames, cfg)
+                torch.cuda.synchronize()
+                block_ms[name].append((time.perf_counter() - t0) / ENCODE_AB_CALLS * 1e3)
+    finally:
+        frontend.pq_ops = pq
+    calls = {n: ops.LAUNCHES["pruned_quantize"] / (2 * AB_ROUNDS * ENCODE_AB_CALLS)
+             for n, ops in versions.items()}
+    med = {n: statistics.median(b) for n, b in block_ms.items()}
+    checks = {"same_encoder_states": bool(torch.equal(enc["this"], enc["other"])),
+              "encoder_states_finite": bool(torch.isfinite(enc["this"]).all()),
+              "k1_once_a_call": calls == {"this": 1.0, "other": 1.0}}
+    emit("kernel_ab", case="whisper_encode", other_src=str(other_src), batch=AUDIO_FRAMES[0],
+         frames=AUDIO_FRAMES[1], calls_per_block=ENCODE_AB_CALLS, order=order,
+         block_ms=block_ms, median_ms=med, k1_calls_per_encode=calls,
+         other_minus_this_ms=med["other"] - med["this"], checks=checks,
+         ok=all(checks.values()))
+    del params, enc
+    if not all(checks.values()):
+        raise SystemExit(f"kernel_ab whisper_encode: {checks}")
+
+
 def main() -> int:
     import torch
 
@@ -1522,10 +1789,19 @@ def main() -> int:
         phase_attn_kernels(torch)
         phase_mm_attn_kernels(torch)
         return 0
+    if "--kernel-ab" in args:  # K1/K3 checked, then timed against another checkout's
+        phase_kernels(torch)
+        phase_k3_profiler(torch)
+        phase_frontend_kernel(torch)
+        other_src = Path(args[args.index("--kernel-ab") + 1]).resolve()
+        phase_kernel_ab(torch, other_src)
+        phase_encode_ab(torch, other_src)
+        return 0
     kern = phase_kernels(torch)
     phase_placement(torch)
     phase_parity(torch)
     launches = phase_slice(torch)
+    phase_k3_profiler(torch)
     if profile:
         phase_profile(torch)
     attn = phase_attn_kernels(torch)
@@ -1541,9 +1817,10 @@ def main() -> int:
 
     train = kern[128]
     rows = []
+    # K3 as training calls it: without dx (x needs no gradient)
     for key, kname, line in (("forward", "fused_qat_forward", 76),
-                             ("backward", "fused_qat_backward", 84)):
-        bms, by = bound_ms(128, key == "backward")
+                             ("backward_no_dx", "fused_qat_backward", 84)):
+        bms, by = bound_ms(128, key != "forward", need_dx=False)
         rows.append({
             "name": kname,
             "route": "cuda",

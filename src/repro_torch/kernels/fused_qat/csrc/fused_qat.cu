@@ -15,32 +15,50 @@
 //   dw[c,f] = sum_b h[b,c] * g[b,f]
 //
 // What bounds it on an H100: at the co-design shapes (C <= 21 inputs,
-// F <= 5 hidden units, T = 15 thresholds, 128 samples a step) one call
-// moves some 0.4 MB and does ~2 MFLOP, well under a microsecond at
-// 3.35 TB/s or 67 TFLOP/s fp32; a call is bound by its launch.  The design
-// therefore keeps everything in one launch per pass (two for the
-// backward's fixed-order tile sum): each block stages its row's tables and
-// weights in shared memory once, loads its x tile with coalesced reads, and
-// keeps the dequantized tile out of device memory, as the Pallas kernel
-// keeps it in VMEM.  The matmuls are far below one tensor-core tile and run
-// on the fp32 pipes.
+// F <= 5 hidden units, T = 15 thresholds, 128 samples a step, P = 24 rows)
+// one call moves some 0.4 MB and does ~2 MFLOP, well under a microsecond
+// at 3.35 TB/s or 67 TFLOP/s fp32; a call is bound by its launch and by
+// the latency of its longest chain of dependent steps.
+//
+// K2 (forward): a block per (128-sample tile, row); it stages its row's
+// tables and weights in shared memory, loads its x tile with coalesced
+// reads and keeps the dequantized tile out of device memory, as the Pallas
+// kernel keeps it in VMEM; one thread a sample then runs its C x T compares
+// and its F dot products.  The matmuls are far below one tensor-core tile
+// and run on the fp32 pipes.
+//
+// K3 (backward): a block per (channel c, row p), P x C blocks (504 at the
+// co-design shape), one thread per sample.
+// A thread recomputes h[b,c] (T compares, its tables read through L1, one
+// address for the whole block), forms its F products h * g[b,f] for dw and,
+// when dx is asked for, dx[b,c] by a 5-term chain; the block then sums the
+// products over samples in a fixed tree.  One launch a call, no shared
+// staging of tiles, no scratch and no second kernel: the block that owns
+// channel c of row p sees all of that row's samples, so it writes dw[p,c,:]
+// whole.  With need_dx false (training: x needs no gradient) nothing of dx
+// is computed or written.
 //
 // Rounding: the dequant uses __fmul_rn / __fsub_rn / __fadd_rn so the
 // compiler cannot contract `level*scale - x` into an FMA; that keeps h
-// bit-identical to quantize_pruned_ste's `x + (v - x)`.
+// bit-identical to quantize_pruned_ste's `x + (v - x)`.  dx[b,c] is
+// fmaf(g[b,f], w[c,f], acc) over f in order from 0, as the first version
+// computed it.
 //
-// Determinism: the reference sums dw over batch tiles through a sequential
-// TPU grid.  Blocks here run in parallel in no fixed order, so each block
-// writes its tile's partial dw (summed over its samples in index order) to
-// scratch and a second kernel adds the tiles in tile order.  No atomics:
-// the same inputs give the same bits on every run, which the genome memo
-// relies on.
+// Order of dw's sums (K3), fixed by the shapes of one row only, so the same
+// inputs give the same bits on every run and a row's result does not depend
+// on P (the genome memo and the placement check rely on both); no atomics:
+// * thread t (of BWD_THREADS = 128) takes samples t, t + 128, ... in index
+//   order and adds each product __fmul_rn(h, g) to its own sum with
+//   __fadd_rn, from 0 (at B <= 128 its sum is its one product, or 0);
+// * each warp folds its 32 sums in halves by shuffles (lane i adds lane
+//   i + 16, then i + 8, ..., 1);
+// * the 4 warp sums are added as (w0 + w2) + (w1 + w3).
+// fused_qat.ref.fused_backward_emulation repeats this order in plain
+// PyTorch, for the CPU tests and to check the kernel's bits on the card.
 //
 // Layouts (all contiguous, row-major, fp32 unless noted):
 //   x (P, B, C), thr (P, C, T), ids (P, C, T) int32, w (P, C, F), bias (P, F),
-//   out (P, B, F), g (P, B, F), dx (P, B, C), dw_part (P, n_tiles, C, F),
-//   dw (P, C, F).
-// Grid: (ceil(B / TILE_B), P); one thread per sample of the tile.
+//   out (P, B, F), g (P, B, F), dx (P, B, C), dw (P, C, F).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,8 +66,8 @@
 
 #define TILE_B 128
 
-// Dynamic shared memory carve-up shared by both kernels:
-//   thr[C*T] f32 | ids[C*T] i32 | w[C*F] f32 | tile[TILE_B*C] f32 | extra
+// Comparator bank, encoder and dequant of one input: the channel's tables
+// from shared memory (K2) or through L1 (K3).
 static __device__ __forceinline__ float dequant_ste(float xv, const float* thr_s,
                                                     const int* ids_s, int T,
                                                     float scale) {
@@ -95,6 +113,7 @@ static __device__ __forceinline__ void stage_h(const float* x, int p, int b0, in
   __syncthreads();
 }
 
+// K2's dynamic shared memory: thr[C*T] f32 | ids[C*T] i32 | w[C*F] f32 | tile[TILE_B*C] f32
 __global__ void fused_qat_fwd_kernel(const float* __restrict__ x,
                                      const float* __restrict__ thr,
                                      const int* __restrict__ ids,
@@ -123,100 +142,88 @@ __global__ void fused_qat_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void fused_qat_bwd_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ thr,
-                                     const int* __restrict__ ids,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ g,
-                                     float* __restrict__ dx,
-                                     float* __restrict__ dw_part, int B, int C,
-                                     int T, int F, float scale) {
-  extern __shared__ float smem[];
-  float* thr_s = smem;
-  int* ids_s = (int*)(thr_s + C * T);
-  float* w_s = (float*)(ids_s + C * T);
-  float* h_s = w_s + C * F;
-  float* g_s = h_s + TILE_B * C;
-  const int p = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int b0 = tile * TILE_B;
-  const int rows = min(TILE_B, B - b0);
-  stage_row(thr, ids, w, p, C, T, F, thr_s, ids_s, w_s);
-  const float* gt = g + ((int64_t)p * B + b0) * F;
-  for (int i = threadIdx.x; i < TILE_B * F; i += blockDim.x) {
-    g_s[i] = i < rows * F ? gt[i] : 0.0f;
-  }
-  __syncthreads();
-  stage_h(x, p, b0, rows, B, C, T, scale, thr_s, ids_s, h_s);
+#define BWD_THREADS 128  // threads of a backward block (ref.BWD_THREADS)
+#define BWD_WARPS (BWD_THREADS / 32)
+#define BWD_FCHUNK 8     // dw outputs a thread sums at once; more F takes more passes
 
-  const int r = threadIdx.x;
-  if (dx != nullptr && r < rows) {
-    float* d = dx + ((int64_t)p * B + b0 + r) * C;
-    for (int c = 0; c < C; ++c) {
-      float acc = 0.0f;
-      for (int f = 0; f < F; ++f) acc = fmaf(g_s[r * F + f], w_s[c * F + f], acc);
-      d[c] = acc;
+static_assert(BWD_WARPS == 4, "the cross-warp sum below is written for 4 warps");
+
+__global__ void __launch_bounds__(BWD_THREADS)
+fused_qat_bwd_kernel(const float* __restrict__ x, const float* __restrict__ thr,
+                     const int* __restrict__ ids, const float* __restrict__ w,
+                     const float* __restrict__ g, float* __restrict__ dx,
+                     float* __restrict__ dw, int B, int C, int T, int F, float scale) {
+  __shared__ float warp_sum[BWD_FCHUNK][BWD_WARPS];
+  const int c = blockIdx.x, p = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t pc = (int64_t)p * C + c;
+  const float* thr_c = thr + pc * T;
+  const int* ids_c = ids + pc * T;
+  const float* w_c = w + pc * F;
+  const float* xp = x + (int64_t)p * B * C + c;  // x[p, b, c] = xp[b * C]
+  const float* gp = g + (int64_t)p * B * F;      // g[p, b, :] = gp[b * F :]
+  for (int f0 = 0; f0 < F; f0 += BWD_FCHUNK) {
+    float acc[BWD_FCHUNK];
+#pragma unroll
+    for (int j = 0; j < BWD_FCHUNK; ++j) acc[j] = 0.0f;
+    for (int b = tid; b < B; b += BWD_THREADS) {
+      const float h = dequant_ste(xp[(int64_t)b * C], thr_c, ids_c, T, scale);
+      const float* gb = gp + (int64_t)b * F;
+#pragma unroll
+      for (int j = 0; j < BWD_FCHUNK; ++j) {
+        if (f0 + j < F) acc[j] = __fadd_rn(acc[j], __fmul_rn(h, gb[f0 + j]));
+      }
+      if (dx != nullptr && f0 == 0) {
+        float d = 0.0f;
+        for (int f = 0; f < F; ++f) d = fmaf(gb[f], w_c[f], d);
+        dx[((int64_t)p * B + b) * C + c] = d;
+      }
     }
-  }
-  // this tile's dw, one (c, f) output per thread, summed in sample order
-  float* part = dw_part + ((int64_t)p * gridDim.x + tile) * C * F;
-  for (int o = threadIdx.x; o < C * F; o += blockDim.x) {
-    const int c = o / F, f = o % F;
-    float acc = 0.0f;
-    for (int s = 0; s < rows; ++s) acc = fmaf(h_s[s * C + c], g_s[s * F + f], acc);
-    part[o] = acc;
+#pragma unroll
+    for (int j = 0; j < BWD_FCHUNK; ++j) {
+      if (f0 + j < F) {  // the same for every thread of the block
+        float v = acc[j];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+        }
+        if (lane == 0) warp_sum[j][warp] = v;
+      }
+    }
+    __syncthreads();
+    if (tid < BWD_FCHUNK && f0 + tid < F) {
+      const float* s = warp_sum[tid];
+      dw[pc * F + f0 + tid] = __fadd_rn(__fadd_rn(s[0], s[2]), __fadd_rn(s[1], s[3]));
+    }
+    __syncthreads();
   }
 }
 
-// dw[p, o] = sum over tiles, in tile order, of dw_part[p, tile, o]
-__global__ void dw_tile_sum_kernel(const float* __restrict__ dw_part,
-                                   float* __restrict__ dw, int P, int n_tiles, int CF) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)P * CF) return;
-  const int64_t p = i / CF, o = i % CF;
-  const float* src = dw_part + p * n_tiles * CF + o;
-  float acc = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) acc = __fadd_rn(acc, src[(int64_t)t * CF]);
-  dw[i] = acc;
-}
-
-static size_t shared_bytes(int C, int T, int F, bool backward) {
-  size_t n = (size_t)C * T * 2 + (size_t)C * F + (size_t)TILE_B * C;
-  if (backward) n += (size_t)TILE_B * F;
-  return n * 4;
+static size_t shared_bytes(int C, int T, int F) {
+  return ((size_t)C * T * 2 + (size_t)C * F + (size_t)TILE_B * C) * 4;
 }
 
 extern "C" {
 
-// Shared memory one block of each kernel needs, for the wrapper's checks.
-size_t fused_qat_shared_bytes(int C, int T, int F, int backward) {
-  return shared_bytes(C, T, F, backward != 0);
-}
+// Shared memory one forward block needs, for the wrapper's checks.
+size_t fused_qat_shared_bytes(int C, int T, int F) { return shared_bytes(C, T, F); }
 
 int fused_qat_forward(const float* x, const float* thr, const int* ids, const float* w,
                       const float* bias, float* out, int P, int B, int C, int T, int F,
                       float scale, void* stream) {
   dim3 grid((B + TILE_B - 1) / TILE_B, P);
-  fused_qat_fwd_kernel<<<grid, TILE_B, shared_bytes(C, T, F, false),
-                         (cudaStream_t)stream>>>(x, thr, ids, w, bias, out, B, C, T, F,
-                                                 scale);
+  fused_qat_fwd_kernel<<<grid, TILE_B, shared_bytes(C, T, F), (cudaStream_t)stream>>>(
+      x, thr, ids, w, bias, out, B, C, T, F, scale);
   return (int)cudaGetLastError();
 }
 
+// dx may be null: then nothing of dx is computed.  One launch.
 int fused_qat_backward(const float* x, const float* thr, const int* ids, const float* w,
-                       const float* g, float* dx, float* dw_part, float* dw, int P, int B,
-                       int C, int T, int F, float scale, void* stream) {
-  const int n_tiles = (B + TILE_B - 1) / TILE_B;
-  dim3 grid(n_tiles, P);
-  fused_qat_bwd_kernel<<<grid, TILE_B, shared_bytes(C, T, F, true),
-                         (cudaStream_t)stream>>>(x, thr, ids, w, g, dx, dw_part, B, C, T,
-                                                 F, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int CF = C * F;
-  const int64_t n = (int64_t)P * CF;
-  dw_tile_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
-      dw_part, dw, P, n_tiles, CF);
+                       const float* g, float* dx, float* dw, int P, int B, int C, int T,
+                       int F, float scale, void* stream) {
+  dim3 grid(C, P);
+  fused_qat_bwd_kernel<<<grid, BWD_THREADS, 0, (cudaStream_t)stream>>>(
+      x, thr, ids, w, g, dx, dw, B, C, T, F, scale);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,9 @@ the top of that file for what bounds them and how the design answers):
 * ``fused_forward``  -- K2, replaces ``_fwd_kernel`` of
   ``src/repro/kernels/fused_qat/fused_qat.py``;
 * ``fused_backward`` -- K3, replaces ``_bwd_kernel`` there; the dequantized
-  activations are recomputed from ``x``, never saved.
+  activations are recomputed from ``x``, never saved.  One launch a call,
+  dw summed in a fixed tree over samples that
+  ``ref.fused_backward_emulation`` repeats on the CPU.
 
 Device rule: a tensor on the CPU takes the plain PyTorch version in
 ``ref``; a tensor on CUDA launches the kernel or raises.  There is no
@@ -47,7 +49,7 @@ __all__ = [
 ]
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_qat.cu"]
-MAX_SHARED_BYTES = 48 * 1024  # default dynamic shared memory of one block
+MAX_SHARED_BYTES = 48 * 1024  # default dynamic shared memory of one forward block
 MAX_ROWS = 65535  # grid.y carries the population axis
 
 LAUNCHES = {"fused_qat_forward": 0, "fused_qat_backward": 0}
@@ -66,9 +68,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load_library("fused_qat", SOURCES)
     lib.fused_qat_forward.argtypes = [_vp] * 6 + [_int] * 5 + [_float, _vp]
     lib.fused_qat_forward.restype = _int
-    lib.fused_qat_backward.argtypes = [_vp] * 8 + [_int] * 5 + [_float, _vp]
+    lib.fused_qat_backward.argtypes = [_vp] * 7 + [_int] * 5 + [_float, _vp]
     lib.fused_qat_backward.restype = _int
-    lib.fused_qat_shared_bytes.argtypes = [_int] * 4
+    lib.fused_qat_shared_bytes.argtypes = [_int] * 3
     lib.fused_qat_shared_bytes.restype = ctypes.c_size_t
     lib.fused_qat_error_string.argtypes = [_int]
     lib.fused_qat_error_string.restype = ctypes.c_char_p
@@ -119,8 +121,8 @@ def _launch_check(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {lib.fused_qat_error_string(err).decode()}")
 
 
-def _shared_check(lib, C: int, T: int, F: int, backward: int) -> None:
-    need = lib.fused_qat_shared_bytes(C, T, F, backward)
+def _shared_check(lib, C: int, T: int, F: int) -> None:
+    need = lib.fused_qat_shared_bytes(C, T, F)
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"C={C}, T={T}, F={F} need {need} bytes of shared memory a block; "
@@ -134,7 +136,7 @@ def fused_forward(x, thr, ids, w, b, scale: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.fused_forward_tables(x, thr, ids, w, b, scale)
     lib = _lib()
-    _shared_check(lib, C, T, F, 0)
+    _shared_check(lib, C, T, F)
     out = torch.empty((P, B, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -151,20 +153,16 @@ def fused_backward(x, thr, ids, w, g, scale: float, need_dx: bool = True):
     """K3: (dx (P, B, C) or None, dw (P, C, F)) from the output gradient g."""
     P, B, C, T, F = _check(x, thr, ids, w, g, "g", lambda P, B, F: (P, B, F))
     if x.device.type == "cpu":
-        dx, dw = ref.fused_backward_tables(x, thr, ids, w, g, scale)
-        return (dx if need_dx else None), dw
+        return ref.fused_backward_tables(x, thr, ids, w, g, scale, need_dx)
     lib = _lib()
-    _shared_check(lib, C, T, F, 1)
-    n_tiles = -(-B // 128)
     dev = x.device
     dx = torch.empty((P, B, C), dtype=torch.float32, device=dev) if need_dx else None
-    dw_part = torch.empty((P, n_tiles, C, F), dtype=torch.float32, device=dev)
     dw = torch.empty((P, C, F), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_qat_backward(
             x.data_ptr(), thr.data_ptr(), ids.data_ptr(), w.data_ptr(), g.data_ptr(),
-            dx.data_ptr() if need_dx else None, dw_part.data_ptr(), dw.data_ptr(),
+            dx.data_ptr() if need_dx else None, dw.data_ptr(),
             P, B, C, T, F, float(scale), stream,
         )
     _launch_check(lib, err, "fused_qat_backward")
