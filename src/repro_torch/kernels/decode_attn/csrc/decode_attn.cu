@@ -22,7 +22,8 @@
 //   no host read.  At yi-9b's decode shape that is 256 blocks on 132 SMs,
 //   where one block per (b, kv head) gave 16.  A block whose chunk starts at
 //   or past kv_len[b] writes an empty partial (m = -1e30, l = 0, acc = 0)
-//   and goes straight to the merge below.
+//   and goes straight to the merge below (where n_split is 1, a row with
+//   no position writes NaN: see the last point).
 // * The G query heads of the group share every K/V tile.  Tiles are
 //   double-buffered in shared memory by cp.async, 16 bytes a thread,
 //   neighbouring threads on neighbouring addresses in d, so the next tile
@@ -43,15 +44,18 @@
 // * The merge: each block counts itself done in a per-(b, KV head) counter
 //   (an atomic add after a fence); the last of the n_split blocks merges
 //   the group's partials in split order, M = max m_s, L = sum 2^(m_s - M)
-//   l_s, out = sum 2^(m_s - M) acc_s / max(L, 1e-30), cast to q's dtype,
+//   l_s, out = sum 2^(m_s - M) acc_s / L, cast to q's dtype,
 //   and resets the counter to 0 for the next call on the stream.  The merge
 //   reads every partial, its own too, from the workspace in split order, so
 //   the same inputs give the same bits every run, whichever block is last.
 //   Where n_split is 1 the block finalises directly.  One kernel a call: a
 //   decode step's 48 calls each save a launch and a workspace allocation on
 //   the host, where the step spends its time.
-// * kv_len >= 1 on the serving path (position + 1); the wrapper rejects 0,
-//   where the reference gives NaN and the Pallas kernel a mean of V.
+// * kv_len >= 1 on the serving path (position + 1).  A row with kv_len <= 0
+//   has no position: its partials are all empty, so L = 0 and acc = 0, and
+//   every merge divides 0 by 0: NaN, as the reference's plain version gives
+//   (its Pallas kernel gives a mean of V).  A row with a position has L >= 1
+//   (the largest score's own weight is 1), so no clamp of L is needed.
 //
 // Layouts: q (B, Hq, d) and out (B, Hq, d) contiguous; k/v with unit stride
 // in d and element strides (sb, ss, sh) for (B, S, Hkv), all multiples of
@@ -60,6 +64,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
@@ -146,7 +151,7 @@ __device__ void merge_if_last(const float* ws_acc, const float* ws_ml, unsigned*
     }
     if (lane == 0) {
       M[g] = m;
-      L[g] = fmaxf(l, 1e-30f);
+      L[g] = l;  // 0 only for a row with no position: out = 0 / 0 = NaN
     }
   }
   __syncthreads();
@@ -170,6 +175,27 @@ __device__ void merge_if_last(const float* ws_acc, const float* ws_ml, unsigned*
 #pragma unroll
     for (int e = 0; e < 4; ++e) dst[e] = from_f<T>(o[e] / L[g]);
   }
+}
+
+// A block whose chunk holds no position.  With n_split > 1 it leaves an
+// empty partial (m = -1e30, l = 0, acc = 0) and joins the merge.  With
+// n_split == 1 the chunk is the whole cache, so the row has no position at
+// all (kv_len <= 0): its outputs are NaN, what the merge gives such a row.
+template <typename T>
+__device__ void empty_chunk(float* ws_acc, float* ws_ml, unsigned* cnt, T* out, int64_t head0,
+                            int G, int d, int split, int n_split, float* smem) {
+  const int tid = threadIdx.x;
+  if (n_split == 1) {
+    for (int i = tid; i < G * d; i += THREADS) out[head0 * d + i] = from_f<T>(CUDART_NAN_F);
+    return;
+  }
+  for (int g = tid; g < G; g += THREADS) {
+    ws_ml[((head0 + g) * n_split + split) * 2] = NEG;
+    ws_ml[((head0 + g) * n_split + split) * 2 + 1] = 0.f;
+  }
+  for (int i = tid; i < G * d; i += THREADS)
+    ws_acc[((head0 + i / d) * n_split + split) * d + i % d] = 0.f;
+  merge_if_last(ws_acc, ws_ml, cnt, out, head0, G, d, n_split, smem);
 }
 
 // Shared memory of the fp32 kernel: k[2][TS*d] | v[2][TS*d] | q[G*d] |
@@ -204,15 +230,9 @@ decode_attn_split_kernel(const float* __restrict__ q, const float* __restrict__ 
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
   unsigned* cnt = counters + (int64_t)b * Hkv + h;
-  if (c0 >= c1) {  // an empty partial; only reached when n_split > 1
-    for (int g = tid; g < G; g += THREADS) {
-      ws_ml[((head0 + g) * n_split + split) * 2] = NEG;
-      ws_ml[((head0 + g) * n_split + split) * 2 + 1] = 0.f;
-    }
-    for (int i = tid; i < GD; i += THREADS)
-      ws_acc[((head0 + i / d) * n_split + split) * d + i % d] = 0.f;
-    merge_if_last(ws_acc, ws_ml, cnt, out, head0, G, d, n_split,
-                  reinterpret_cast<float*>(smem_raw));
+  if (c0 >= c1) {
+    empty_chunk(ws_acc, ws_ml, cnt, out, head0, G, d, split, n_split,
+                reinterpret_cast<float*>(smem_raw));
     return;
   }
 
@@ -359,7 +379,7 @@ decode_attn_split_kernel(const float* __restrict__ q, const float* __restrict__ 
 
   if (n_split == 1) {
     for (int i = tid; i < GD; i += THREADS)
-      out[head0 * d + i] = acc_s[i] / fmaxf(l_s[i / d], 1e-30f);
+      out[head0 * d + i] = acc_s[i] / l_s[i / d];
     return;
   }
   for (int i = tid; i < GD; i += THREADS) {
@@ -429,15 +449,9 @@ decode_attn_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
   unsigned* cnt = counters + (int64_t)b * Hkv + h;
-  if (c0 >= c1) {  // an empty partial; only reached when n_split > 1
-    for (int g = tid; g < G; g += THREADS) {
-      ws_ml[((head0 + g) * n_split + split) * 2] = NEG;
-      ws_ml[((head0 + g) * n_split + split) * 2 + 1] = 0.f;
-    }
-    for (int i = tid; i < GD; i += THREADS)
-      ws_acc[((head0 + i / d) * n_split + split) * d + i % d] = 0.f;
-    merge_if_last(ws_acc, ws_ml, cnt, out, head0, G, d, n_split,
-                  reinterpret_cast<float*>(smem_raw));
+  if (c0 >= c1) {
+    empty_chunk(ws_acc, ws_ml, cnt, out, head0, G, d, split, n_split,
+                reinterpret_cast<float*>(smem_raw));
     return;
   }
 
@@ -597,7 +611,7 @@ decode_attn_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
       a += wt * acc_all[(w * 8 + g) * d + j];
     }
     if (n_split == 1) {
-      out[head0 * d + i] = __float2bfloat16_rn(a / fmaxf(l, 1e-30f));
+      out[head0 * d + i] = __float2bfloat16_rn(a / l);
     } else {
       ws_acc[((head0 + g) * n_split + split) * d + j] = a;
       if (j == 0) {

@@ -1,9 +1,12 @@
 """Flash-decode GQA attention: the K5 wrapper.
 
-``decode_attention(q, k_cache, v_cache, kv_len)`` has the signature and
-layout of the JAX package's ``kernels/decode_attn/ops.decode_attention``:
+``decode_attention(q, k_cache, v_cache, kv_len=None)`` has the signature
+and layout of the JAX package's ``kernels/decode_attn/ops.decode_attention``:
 q (B, Hq, d) one token per row, caches (B, S, Hkv, d) in the model's
-layout, kv_len (B,) int32; returns (B, Hq, d) in q's dtype.
+layout, kv_len (B,) int32 or None for the full cache; returns (B, Hq, d) in
+q's dtype.  A row with ``kv_len <= 0`` attends to nothing and is NaN, as
+the reference's plain version gives it; the other rows are computed as
+usual.  Nothing of kv_len is read on the host.
 
 Kernel: ``csrc/decode_attn.cu`` (CUDA C++ for ``sm_90a``; the note at the
 top of that file says what it replaces, what bounds it and how the design
@@ -113,7 +116,8 @@ def variant(dtype: torch.dtype, G: int, d: int) -> str:
 
 
 def _check(q, k_cache, v_cache, kv_len) -> tuple[int, ...]:
-    """Validate the inputs; returns (B, S, Hkv, G, d)."""
+    """Validate the inputs (shapes, dtypes, devices: nothing is read from the
+    device); returns (B, S, Hkv, G, d)."""
     if q.ndim != 3 or k_cache.ndim != 4:
         raise ValueError("q must be (B, Hq, d) and the caches (B, S, Hkv, d)")
     B, Hq, d = q.shape
@@ -124,25 +128,26 @@ def _check(q, k_cache, v_cache, kv_len) -> tuple[int, ...]:
         )
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads are not a multiple of {Hkv} KV heads")
-    if tuple(kv_len.shape) != (B,) or kv_len.dtype != torch.int32:
+    if kv_len is not None and (tuple(kv_len.shape) != (B,) or kv_len.dtype != torch.int32):
         raise ValueError(f"kv_len must be ({B},) int32, got {tuple(kv_len.shape)} {kv_len.dtype}")
     if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(
             f"q/k/v must share one of {list(DTYPES)}: {q.dtype}, {k_cache.dtype}, {v_cache.dtype}"
         )
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache), ("kv_len", kv_len)):
-        if t.device != q.device:
+        if t is not None and t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    if B and int(kv_len.min()) < 1:
-        raise ValueError("kv_len must be >= 1: an empty cache has no attention output")
     return B, S, Hkv, Hq // Hkv, d
 
 
-def decode_attention(q, k_cache, v_cache, kv_len) -> torch.Tensor:
-    """One-token GQA attention against a ragged KV cache; K5 on CUDA."""
+def decode_attention(q, k_cache, v_cache, kv_len=None) -> torch.Tensor:
+    """One-token GQA attention against a ragged KV cache; K5 on CUDA.
+    ``kv_len=None`` is the full cache, as in the reference."""
     B, S, Hkv, G, d = _check(q, k_cache, v_cache, kv_len)
+    if kv_len is None:  # filled on q's device: no host round trip
+        kv_len = torch.full((B,), S, dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_len)
     if not q.is_contiguous() or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:

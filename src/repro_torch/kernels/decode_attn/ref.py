@@ -3,7 +3,8 @@
 The port of the JAX package's oracle ``kernels/decode_attn/ref.py``, taking
 the model's cache layout directly: q (B, Hq, d), caches (B, S, Hkv, d),
 kv_len (B,).  Scores and softmax in fp32, positions ``>= kv_len`` masked
-out, output in q's dtype.
+out, output in q's dtype.  A row with ``kv_len <= 0`` has every score
+masked, and its softmax, like the reference's, is NaN.
 
 ``decode_attention_split_emulation`` repeats on the CPU what the kernel does
 with the cache split into chunks: a partial (m, l, acc) per chunk in log2
@@ -38,7 +39,9 @@ def decode_attention_split_emulation(q, k_cache, v_cache, kv_len, n_split: int,
                                      chunk: int) -> torch.Tensor:
     """K5's split-then-merge in fp32: split s covers positions [s * chunk,
     (s + 1) * chunk) clipped to kv_len; its partial is m (log2 units), l and
-    acc; the merge weighs each non-empty partial by 2^(m_s - M)."""
+    acc; the merge weighs each non-empty partial by 2^(m_s - M).  A row with
+    no position (kv_len <= 0) has L = 0 and is NaN (0 / 0), as the kernels'
+    merges give it."""
     B, Hq, d = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = Hq // Hkv
@@ -66,4 +69,4 @@ def decode_attention_split_emulation(q, k_cache, v_cache, kv_len, n_split: int,
         w = torch.where(l > 0, torch.exp2(m - M), torch.tensor(0.0))
         L = L + w * l
         out = out + w * acc
-    return (out / L.clamp(min=1e-30)).reshape(B, Hq, d).to(q.dtype)
+    return (out / L).reshape(B, Hq, d).to(q.dtype)

@@ -20,12 +20,31 @@
 // at 3.35 TB/s or 67 TFLOP/s fp32; a call is bound by its launch and by
 // the latency of its longest chain of dependent steps.
 //
-// K2 (forward): a block per (128-sample tile, row); it stages its row's
-// tables and weights in shared memory, loads its x tile with coalesced
-// reads and keeps the dequantized tile out of device memory, as the Pallas
-// kernel keeps it in VMEM; one thread a sample then runs its C x T compares
-// and its F dot products.  The matmuls are far below one tensor-core tile
-// and run on the fp32 pipes.
+// K2 (forward): a block per (tile of `tile` samples, row p), tile * max(C, F)
+// threads rounded up to a warp, in two stages in one launch (the plan, from
+// shapes alone, is ops.forward_plan; tile = 16 at the co-design shape, 192
+// blocks of 352 threads):
+// * comparator stage: thread i of the block owns element i of the tile's x
+//   rows (sample i / C, channel i % C; the rows are contiguous, so a warp's
+//   loads are one coalesced run).  The block first stages its row's tables
+//   and weights in shared memory with coalesced loads; each thread copies
+//   its channel's T thresholds and ids into registers (RegBank<15>, N = 4,
+//   every co-design config; other T read them from shared memory, SmemBank)
+//   and runs its T compares, a PTX compare and a predicated max each, as
+//   K1 does.  The dependent chain of a thread is T = 15 steps, where one
+//   thread a sample ran C x T = 315.  It writes h to a shared tile, which
+//   stays out of device memory, as the Pallas kernel keeps it in VMEM.
+// * matmul stage, after one __syncthreads: thread j < rows * F computes
+//   out[s, f], (s, f) = divmod(j, F), as the fmaf chain over c = 0..C-1 from
+//   0 of h[s, c] * w[c, f] (h from the shared tile, w staged), plus bias[f];
+//   the tile's rows * F outputs are contiguous, so the stores coalesce.
+//   These matmuls are far below one tensor-core tile and run on the fp32
+//   pipes.
+// Bits: h is the same value the first design computed (the level is a
+// max over the fired ids, whatever the order; the dequant below), and each
+// output is the same fmaf chain in channel order plus the bias, so the
+// output equals the first design's bit for bit, for any tile: no sum depends
+// on the tiling, on P or on the run, and there are no atomics.
 //
 // K3 (backward): a block per (channel c, row p), P x C blocks (504 at the
 // co-design shape), one thread per sample.
@@ -64,10 +83,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#define TILE_B 128
+// The STE forward value x + (level * scale - x), rounded step by step.
+static __device__ __forceinline__ float dequant_value(float xv, int lv, float scale) {
+  float v = __fmul_rn((float)lv, scale);
+  return __fadd_rn(xv, __fsub_rn(v, xv));
+}
 
-// Comparator bank, encoder and dequant of one input: the channel's tables
-// from shared memory (K2) or through L1 (K3).
+// Comparator bank, encoder and dequant of one input, the channel's tables
+// read through L1 (K3).
 static __device__ __forceinline__ float dequant_ste(float xv, const float* thr_s,
                                                     const int* ids_s, int T,
                                                     float scale) {
@@ -76,69 +99,100 @@ static __device__ __forceinline__ float dequant_ste(float xv, const float* thr_s
     // +inf at pruned slots never fires; x >= thr fires at equality
     if (xv >= thr_s[t]) lv = max(lv, ids_s[t]);
   }
-  float v = __fmul_rn((float)lv, scale);
-  return __fadd_rn(xv, __fsub_rn(v, xv));
+  return dequant_value(xv, lv, scale);
 }
 
-static __device__ __forceinline__ void stage_row(const float* thr, const int* ids,
-                                                 const float* w, int p, int C, int T,
-                                                 int F, float* thr_s, int* ids_s,
-                                                 float* w_s) {
-  const int64_t ct = (int64_t)C * T, cf = (int64_t)C * F;
-  for (int i = threadIdx.x; i < ct; i += blockDim.x) {
-    thr_s[i] = thr[p * ct + i];
-    ids_s[i] = ids[p * ct + i];
-  }
-  for (int i = threadIdx.x; i < cf; i += blockDim.x) w_s[i] = w[p * cf + i];
-}
+namespace {
 
-// Load the tile's x rows (contiguous in memory) with coalesced reads, then
-// replace each thread's own row by its dequantized STE value h.  Rows past
-// the ragged end of the batch are zero (they feed no output and add
-// nothing to dw).
-static __device__ __forceinline__ void stage_h(const float* x, int p, int b0, int rows,
-                                               int B, int C, int T, float scale,
-                                               const float* thr_s, const int* ids_s,
-                                               float* h_s) {
-  const float* xt = x + ((int64_t)p * B + b0) * C;
-  const int n = rows * C;
-  for (int i = threadIdx.x; i < TILE_B * C; i += blockDim.x) h_s[i] = i < n ? xt[i] : 0.0f;
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < rows) {
-    for (int c = 0; c < C; ++c) {
-      h_s[r * C + c] = dequant_ste(h_s[r * C + c], thr_s + c * T, ids_s + c * T, T, scale);
+constexpr int FWD_MAX_THREADS = 1024;  // threads of a forward block at most (ops.MAX_THREADS)
+
+// K2's comparator bank of one channel, T known at compile time: the tables
+// copied from shared memory into registers, then a compare and a predicated
+// max a comparator, written in PTX (the lines of K1's RegBank::level).
+template <int T>
+struct RegBank {
+  float th[T];
+  int id[T];
+  __device__ __forceinline__ RegBank(const float* thr_s, const int* ids_s, int) {
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      th[t] = thr_s[t];
+      id[t] = ids_s[t];
     }
   }
-  __syncthreads();
-}
+  __device__ __forceinline__ int level(float v) const {
+    int lv = 0;
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      // comparator t fires; the encoder keeps the largest id that fired: a
+      // compare and a predicated max (the compiler's own lowering of the
+      // same C++ takes a third instruction)
+      asm("{\n\t.reg .pred p;\n\tsetp.ge.f32 p, %1, %2;\n\t@p max.s32 %0, %0, %3;\n\t}"
+          : "+r"(lv)
+          : "f"(v), "f"(th[t]), "r"(id[t]));
+    }
+    return lv;
+  }
+};
 
-// K2's dynamic shared memory: thr[C*T] f32 | ids[C*T] i32 | w[C*F] f32 | tile[TILE_B*C] f32
-__global__ void fused_qat_fwd_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ thr,
-                                     const int* __restrict__ ids,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ bias,
-                                     float* __restrict__ out, int B, int C, int T,
-                                     int F, float scale) {
+// Any T: the channel's tables read from shared memory for each compare.
+struct SmemBank {
+  const float* th;
+  const int* id;
+  int T;
+  __device__ __forceinline__ SmemBank(const float* thr_s, const int* ids_s, int T_)
+      : th(thr_s), id(ids_s), T(T_) {}
+  __device__ __forceinline__ int level(float v) const {
+    int lv = 0;
+    for (int t = 0; t < T; ++t) {
+      if (v >= th[t]) lv = max(lv, id[t]);
+    }
+    return lv;
+  }
+};
+
+}  // namespace
+
+// K2's dynamic shared memory: thr[C*T] f32 | ids[C*T] i32 | w[C*F] f32 |
+// h[tile*C] f32 (ops.forward_plan counts the same bytes).
+template <class Bank>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+fused_qat_fwd_kernel(const float* __restrict__ x, const float* __restrict__ thr,
+                     const int* __restrict__ ids, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out, int B, int C,
+                     int T, int F, float scale, int tile) {
   extern __shared__ float smem[];
   float* thr_s = smem;
   int* ids_s = (int*)(thr_s + C * T);
   float* w_s = (float*)(ids_s + C * T);
   float* h_s = w_s + C * F;
-  const int p = blockIdx.y;
-  const int b0 = blockIdx.x * TILE_B;
-  const int rows = min(TILE_B, B - b0);
-  stage_row(thr, ids, w, p, C, T, F, thr_s, ids_s, w_s);
+  const int p = blockIdx.y, tid = threadIdx.x;
+  const int b0 = blockIdx.x * tile;
+  const int rows = min(tile, B - b0);
+  const int ct = C * T, cf = C * F;
+  for (int i = tid; i < ct; i += blockDim.x) {  // the row's tables and weights
+    thr_s[i] = thr[(int64_t)p * ct + i];
+    ids_s[i] = ids[(int64_t)p * ct + i];
+  }
+  for (int i = tid; i < cf; i += blockDim.x) w_s[i] = w[(int64_t)p * cf + i];
+  const int64_t e0 = (int64_t)p * B + b0;  // the tile's first sample in (P, B)
+  float xv = 0.0f;
+  if (tid < rows * C) xv = x[e0 * C + tid];  // issued before the barrier
   __syncthreads();
-  stage_h(x, p, b0, rows, B, C, T, scale, thr_s, ids_s, h_s);
-  const int r = threadIdx.x;
-  if (r >= rows) return;
-  float* o = out + ((int64_t)p * B + b0 + r) * F;
-  for (int f = 0; f < F; ++f) {
+  // comparator stage: element tid = (sample tid / C, channel tid % C)
+  if (tid < rows * C) {
+    const int c = tid % C;
+    const Bank bank(thr_s + c * T, ids_s + c * T, T);
+    h_s[tid] = dequant_value(xv, bank.level(xv), scale);
+  }
+  __syncthreads();
+  // matmul stage: output tid = (sample tid / F, unit tid % F), channels in order
+  if (tid < rows * F) {
+    const int s = tid / F, f = tid - s * F;
+    const float* hs = h_s + s * C;
     float acc = 0.0f;
-    for (int c = 0; c < C; ++c) acc = fmaf(h_s[r * C + c], w_s[c * F + f], acc);
-    o[f] = acc + bias[(int64_t)p * F + f];
+    for (int c = 0; c < C; ++c) acc = fmaf(hs[c], w_s[c * F + f], acc);
+    out[e0 * F + tid] = __fadd_rn(acc, bias[(int64_t)p * F + f]);
   }
 }
 
@@ -199,21 +253,23 @@ fused_qat_bwd_kernel(const float* __restrict__ x, const float* __restrict__ thr,
   }
 }
 
-static size_t shared_bytes(int C, int T, int F) {
-  return ((size_t)C * T * 2 + (size_t)C * F + (size_t)TILE_B * C) * 4;
-}
-
 extern "C" {
 
-// Shared memory one forward block needs, for the wrapper's checks.
-size_t fused_qat_shared_bytes(int C, int T, int F) { return shared_bytes(C, T, F); }
-
+// The plan (tile, threads, grid_x, shared_bytes) comes from ops.forward_plan;
+// grid.y is the population.  One launch.
 int fused_qat_forward(const float* x, const float* thr, const int* ids, const float* w,
                       const float* bias, float* out, int P, int B, int C, int T, int F,
-                      float scale, void* stream) {
-  dim3 grid((B + TILE_B - 1) / TILE_B, P);
-  fused_qat_fwd_kernel<<<grid, TILE_B, shared_bytes(C, T, F), (cudaStream_t)stream>>>(
-      x, thr, ids, w, bias, out, B, C, T, F, scale);
+                      float scale, int tile, int threads, int grid_x, int shared_bytes,
+                      void* stream) {
+  dim3 grid(grid_x, P);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (T == 15) {  // N = 4: the tables in registers
+    fused_qat_fwd_kernel<RegBank<15>><<<grid, threads, shared_bytes, st>>>(
+        x, thr, ids, w, bias, out, B, C, T, F, scale, tile);
+  } else {
+    fused_qat_fwd_kernel<SmemBank><<<grid, threads, shared_bytes, st>>>(
+        x, thr, ids, w, bias, out, B, C, T, F, scale, tile);
+  }
   return (int)cudaGetLastError();
 }
 

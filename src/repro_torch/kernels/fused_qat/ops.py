@@ -13,7 +13,10 @@ Kernels (``csrc/fused_qat.cu``, CUDA C++ for ``sm_90a``; see the note at
 the top of that file for what bounds them and how the design answers):
 
 * ``fused_forward``  -- K2, replaces ``_fwd_kernel`` of
-  ``src/repro/kernels/fused_qat/fused_qat.py``;
+  ``src/repro/kernels/fused_qat/fused_qat.py``; a block per (tile of
+  samples, row), a thread an element in its comparator stage and an output
+  in its matmul stage, planned from shapes alone by ``forward_plan`` so
+  that the CPU tests can check the plan;
 * ``fused_backward`` -- K3, replaces ``_bwd_kernel`` there; the dequantized
   activations are recomputed from ``x``, never saved.  One launch a call,
   dw summed in a fixed tree over samples that
@@ -29,6 +32,7 @@ the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -42,6 +46,8 @@ from repro_torch.kernels.pruned_quant.ref import make_tables
 __all__ = [
     "LAUNCHES",
     "reset_launch_counts",
+    "ForwardPlan",
+    "forward_plan",
     "fused_forward",
     "fused_backward",
     "FusedQAT",
@@ -50,7 +56,9 @@ __all__ = [
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "fused_qat.cu"]
 MAX_SHARED_BYTES = 48 * 1024  # default dynamic shared memory of one forward block
+MAX_THREADS = 1024  # threads of one forward block (csrc FWD_MAX_THREADS)
 MAX_ROWS = 65535  # grid.y carries the population axis
+TILE = 16  # samples a forward block, chosen by measurement on the card (PERF.md)
 
 LAUNCHES = {"fused_qat_forward": 0, "fused_qat_backward": 0}
 
@@ -66,12 +74,10 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     """The built library, loaded once per process (hashing sources is not free)."""
     lib = _build.load_library("fused_qat", SOURCES)
-    lib.fused_qat_forward.argtypes = [_vp] * 6 + [_int] * 5 + [_float, _vp]
+    lib.fused_qat_forward.argtypes = [_vp] * 6 + [_int] * 5 + [_float] + [_int] * 4 + [_vp]
     lib.fused_qat_forward.restype = _int
     lib.fused_qat_backward.argtypes = [_vp] * 7 + [_int] * 5 + [_float, _vp]
     lib.fused_qat_backward.restype = _int
-    lib.fused_qat_shared_bytes.argtypes = [_int] * 3
-    lib.fused_qat_shared_bytes.restype = ctypes.c_size_t
     lib.fused_qat_error_string.argtypes = [_int]
     lib.fused_qat_error_string.restype = ctypes.c_char_p
     return lib
@@ -121,13 +127,43 @@ def _launch_check(lib, err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {lib.fused_qat_error_string(err).decode()}")
 
 
-def _shared_check(lib, C: int, T: int, F: int) -> None:
-    need = lib.fused_qat_shared_bytes(C, T, F)
-    if need > MAX_SHARED_BYTES:
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    """K2's launch: block (bx, p) covers samples [bx * tile, + tile) of row p,
+    clipped to B.  In its comparator stage thread t takes element t of those
+    samples' x rows, (sample t // C, channel t % C); in its matmul stage,
+    output t, (sample t // F, unit t % F).  Threads past the tile's elements
+    (or outputs) idle in that stage."""
+
+    tile: int           # samples a block
+    threads: int        # tile * max(C, F), rounded up to a warp
+    grid_x: int         # tiles of a row; grid.y is P
+    shared_bytes: int   # thr, ids (C * T each), w (C * F) and the h tile (tile * C)
+
+
+def forward_plan(P: int, B: int, C: int, F: int, T: int) -> ForwardPlan:
+    """The launch of a (P, B, C) -> (P, B, F) forward: TILE samples a block,
+    fewer where the batch is smaller, where max(C, F) channels or units would
+    need more than MAX_THREADS threads, or where the h tile would not fit in
+    MAX_SHARED_BYTES beside the tables; raises ValueError where even one
+    sample a block does not fit."""
+    if P < 1 or B < 1 or C < 1 or F < 1:
+        raise ValueError(f"empty launch: P={P} B={B} C={C} F={F}")
+    width = max(C, F)
+    if width > MAX_THREADS:
         raise ValueError(
-            f"C={C}, T={T}, F={F} need {need} bytes of shared memory a block; "
-            f"the kernel takes at most {MAX_SHARED_BYTES}"
-        )
+            f"C={C}, F={F}: one sample a block needs {width} threads; "
+            f"a block holds at most {MAX_THREADS}")
+    fixed = 4 * (2 * C * T + C * F)  # the row's tables and weights
+    fits = (MAX_SHARED_BYTES - fixed) // (4 * C)  # samples whose h tile fits beside them
+    if fits < 1:
+        raise ValueError(
+            f"C={C}, T={T}, F={F}: the row's tables, weights and one sample need "
+            f"{fixed + 4 * C} bytes of shared memory a block; the kernel takes at most "
+            f"{MAX_SHARED_BYTES}")
+    tile = min(TILE, MAX_THREADS // width, fits, B)
+    return ForwardPlan(tile, -(-tile * width // 32) * 32, -(-B // tile),
+                       fixed + 4 * tile * C)
 
 
 def fused_forward(x, thr, ids, w, b, scale: float) -> torch.Tensor:
@@ -135,14 +171,15 @@ def fused_forward(x, thr, ids, w, b, scale: float) -> torch.Tensor:
     P, B, C, T, F = _check(x, thr, ids, w, b, "b", lambda P, B, F: (P, F))
     if x.device.type == "cpu":
         return ref.fused_forward_tables(x, thr, ids, w, b, scale)
+    plan = forward_plan(P, B, C, F, T)
     lib = _lib()
-    _shared_check(lib, C, T, F)
     out = torch.empty((P, B, F), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_qat_forward(
             x.data_ptr(), thr.data_ptr(), ids.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), P, B, C, T, F, float(scale), stream,
+            out.data_ptr(), P, B, C, T, F, float(scale), plan.tile, plan.threads,
+            plan.grid_x, plan.shared_bytes, stream,
         )
     _launch_check(lib, err, "fused_qat_forward")
     LAUNCHES["fused_qat_forward"] += 1
