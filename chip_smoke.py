@@ -5,6 +5,11 @@
     python3 chip_smoke.py --profile   # also profile 20 training steps, and decode steps
                                       # and a prefill (or encode) of each served model
                                       # (gzipped traces to the OUT directory)
+    python3 chip_smoke.py --step-ab   # build, phase 4, then the population step and a
+                                      # co-design generation timed eager and from the
+                                      # CUDA graph in turns (the graph at block lengths
+                                      # S_CANDIDATES), profiles of both, and a capture
+                                      # made to fail; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
     python3 chip_smoke.py --decode-ab DIR
@@ -45,14 +50,25 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 come after phase 6 (``qat_profiler``): the profiler leaves
                 kernel launches slower on the host, and phases 4-6 time a
                 host-bound loop.
-4. placement    a row trained alone and inside a batch of 24 gives the same bits;
-                two runs of one batch give the same bits.
+4. placement    the population step replayed from CUDA graphs (blocks of
+                ``EvalConfig.block_steps`` steps) against the eager loop,
+                parameters and accuracies ``torch.equal``, at P = 24 and at
+                P = 5 (bucket 8); a row trained alone and inside a batch of
+                24 gives the same bits; two runs of one batch give the same
+                bits; the graphs captured.
 5. parity       8 cardio genomes from one draw, on the card and through the
                 port's CPU plain path, 600 steps: the per-row accuracy gap must
                 stay within the bound measured on the CPU against the JAX package.
 6. slice        ``run_codesign`` on cardio at full width (pop 24, 600 steps, 4-bit
-                ADCs), 2 generations, with the kernels' launch counts read from
-                that run alone.
+                ADCs), 2 generations, through the graphs, with the kernels'
+                launch counts read from that run alone: exact, replays
+                counted (``EvaluatorTally``).
+6b. campaign    ``run_campaign`` over the six datasets at ``CampaignConfig``'s
+                defaults, then again over its memo_dir (zero rows trained);
+                on seeds with 3 islands the sequential, stacked and async
+                drivers give identical fronts, counters, migrations and
+                memos, and a drilled host failure plus resume equals the
+                uninterrupted run; exact K2/K3 launch counts.
 7. attn_kernels K4 (flash attention) and K5 (flash-decode) against their plain
                 versions in bf16 and fp32, at yi-9b's prefill and decode shapes
                 and at the edge shapes of the CPU sweep; times by CUDA events
@@ -113,8 +129,10 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 alone; then the steps against ``decode_train`` over the same
                 tokens, within 3x its bf16-vs-fp32 floor.
 
-The last three lines are the card's name and power limit, the kernels'
-summary, and ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+Last, ``capture_fails``: a capture made to read a value back to the host
+raises, caches no graph and falls back to nothing.  The last three lines
+are the card's name and power limit, the kernels' summary, and
+``{"ok": true, "device": {...}}``.  Without CUDA, or without
 the repository beside it, the script fails and prints no result.
 """
 
@@ -468,32 +486,60 @@ def _cardio_rows(n: int, seed: int):
             dec["epochs"], dec["lr"]), rng.integers(0, 2**31 - 1, n).astype(np.int32)
 
 
+def _same(torch, a, b) -> bool:
+    """Two (acc, params) results of a row program, the same bits."""
+    return bool(torch.equal(a[0], b[0])) and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+
+
 def phase_placement(torch):
+    """The captured graph against the eager loop, bit for bit, at P = 24 and
+    at P = 5 (bucket 8); a row alone equals the same row in the batch; two
+    runs of one batch give the same bits.  600 steps, blocks of S steps."""
     from repro_torch.core import qat, trainer
 
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
     mcfg, ecfg = qat.MLPConfig(sizes), trainer.EvalConfig(max_steps=600)
     run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
+    eager = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
+                                     graph=False)
     rows, seeds = _cardio_rows(P, seed=7)
     params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
     t0 = time.perf_counter()
-    acc, params = run(*rows, params0, idx)
+    out = run(*rows, params0, idx)  # captures bucket 24's graph, then replays it
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out2 = run(*rows, params0, idx)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
-    acc2, params2 = run(*rows, params0, idx)
-    same_run = bool(torch.equal(acc, acc2)) and all(
-        torch.equal(params[k], params2[k]) for k in params)
+    t0 = time.perf_counter()
+    ref = eager(*rows, params0, idx)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
     alone_ok = True
     for p in (0, P // 2, P - 1):
         sl = slice(p, p + 1)
         a1, p1 = run(*(r[sl] for r in rows), {k: v[sl] for k, v in params0.items()}, idx[sl])
-        alone_ok &= bool(torch.equal(a1[0], acc[p])) and all(
-            torch.equal(p1[k][0], params[k][p]) for k in p1)
-    emit("placement", rows=P, steps=600, batch_of_24_s=batch_s,
-         alone_equals_batch=alone_ok, run_to_run_equal=same_run,
-         ok=alone_ok and same_run)
-    if not (alone_ok and same_run):
-        raise SystemExit("a row's result depends on its batch or on the run")
+        alone_ok &= bool(torch.equal(a1[0], out[0][p])) and all(
+            torch.equal(p1[k][0], out[1][k][p]) for k in p1)
+    five = slice(3, 8)  # P = 5: padded to bucket 8 by repeating its last row
+    rows5 = [r[five] for r in rows]
+    p5 = {k: v[five] for k, v in params0.items()}
+    g5, e5 = run(*rows5, p5, idx[five]), eager(*rows5, p5, idx[five])
+    checks = {
+        "graph_equals_eager_p24": _same(torch, out, ref),
+        "graph_equals_eager_p5": _same(torch, g5, e5),
+        "p5_equals_its_rows_in_p24": _same(torch, g5, (out[0][five], {
+            k: v[five] for k, v in out[1].items()})),
+        "alone_equals_batch": alone_ok,
+        "run_to_run_equal": _same(torch, out, out2),
+        "acc_finite": bool(torch.isfinite(out[0]).all()),
+    }
+    emit("placement", rows=P, steps=600, block_steps=ecfg.block_steps,
+         first_call_s=first_s, batch_of_24_s=batch_s, eager_batch_of_24_s=eager_s,
+         graph_stats=dict(run.stats), checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"placement checks failed: {checks}")
 
 
 def phase_parity(torch):
@@ -515,6 +561,44 @@ def phase_parity(torch):
         raise SystemExit("the card's accuracies leave the bound measured on the CPU")
 
 
+class EvaluatorTally:
+    """The co-design evaluators made while installed, and their stats.
+
+    Wraps ``trainer.make_population_evaluator`` (which the island evaluator
+    and ``rebuild`` also go through) to keep each evaluator's ``stats``:
+    calls, graphs captured, warm-up steps, replays.  From them the K2 and
+    K3 launches of a run are exact: a call launches K2 once a step and once
+    for its evaluation and K3 once a step, and each capture's warm-up steps
+    launch both once."""
+
+    def __init__(self):
+        from repro_torch.core import trainer
+
+        self.trainer, self.stats = trainer, []
+
+    def __enter__(self):
+        self.orig = make = self.trainer.make_population_evaluator
+
+        def tallied(*a, **kw):
+            ev = make(*a, **kw)
+            self.stats.append(ev.stats)
+            return ev
+
+        self.trainer.make_population_evaluator = tallied
+        return self
+
+    def __exit__(self, *exc):
+        self.trainer.make_population_evaluator = self.orig
+
+    def total(self, key: str) -> int:
+        return sum(st[key] for st in self.stats)
+
+    def expected_launches(self, max_steps: int) -> dict:
+        calls, warm = self.total("calls"), self.total("warmup_steps")
+        return {"fused_qat_forward": calls * (max_steps + 1) + warm,
+                "fused_qat_backward": calls * max_steps + warm}
+
+
 def phase_slice(torch):
     import dataclasses
 
@@ -528,15 +612,15 @@ def phase_slice(torch):
                               device="cuda")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = codesign.run_codesign(cfg)
+    with EvaluatorTally() as tally:
+        res = codesign.run_codesign(cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     # evaluator calls: the seed population, each generation that trained
     # rows, and the 4-seed conventional baseline
     calls = 1 + sum(1 for r in res.history if r["n_evals"] > 0) + 1
-    want = {"fused_qat_forward": calls * (cfg.max_steps + 1),
-            "fused_qat_backward": calls * cfg.max_steps}
+    want = tally.expected_launches(cfg.max_steps)
     gen_s = [r["gen_s"] for r in res.history]
     step_s = [r["eval_s"] / cfg.max_steps for r in res.history if r["n_evals"] > 0]
     checks = {
@@ -546,6 +630,9 @@ def phase_slice(torch):
         "level0_kept": bool(res.front_masks[:, :, 0].all()),
         "pruned_on_front": bool(res.front_area.min() < res.conv_area),
         "baseline_learns": res.conv_acc > 0.70,
+        "evaluator_calls": tally.total("calls") == calls,
+        "every_call_replayed": tally.total("replays") == calls * -(
+            -cfg.max_steps // tally.trainer.EvalConfig().block_steps),
         "launch_counts": launches == want,
     }
     emit("slice", dataset="cardio", pop_size=cfg.pop_size, max_steps=cfg.max_steps,
@@ -553,11 +640,128 @@ def phase_slice(torch):
          front_acc=res.front_acc.tolist(), conv_acc=res.conv_acc,
          area_gain_at_5pct=codesign.gains_at_budget(res, 0.05)["area_gain"],
          n_evaluations=res.n_evaluations, n_memo_hits=res.n_memo_hits,
-         evaluator_calls=calls, launches=launches, expected_launches=want,
+         evaluator_calls=calls, graph_stats={k: tally.total(k) for k in tally.stats[0]},
+         launches=launches, expected_launches=want,
          seconds_per_generation=gen_s, seconds_per_step=step_s, wall_s=wall,
          checks=checks, ok=all(checks.values()))
     if not all(checks.values()):
         raise SystemExit(f"slice checks failed: {checks}")
+    return launches
+
+
+# the island runs of the campaign phase (seeds, CampaignConfig's defaults otherwise)
+CAMPAIGN_ISLANDS = dict(num_islands=3, migration_interval=2, migration_size=1)
+CAMPAIGN_CRASH_AT = 7  # the batch ordinal a drilled host failure interrupts
+
+
+def _campaign_result(res, memo_path) -> dict:
+    """What two runs of one search must agree on: front, counters, migrations, memo."""
+    from repro_torch.core import memo_store
+
+    memo = memo_store.load_memo(str(memo_path))
+    return {"front_masks": res.front_masks, "front_cats": res.front_cats,
+            "front_acc": res.front_acc, "n_evaluations": res.n_evaluations,
+            "n_memo_hits": res.n_memo_hits, "migrations": res.migrations,
+            "memo_keys": list(memo), "memo_objs": list(memo.values())}
+
+
+def _same_result(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) if k != "memo_keys"
+               else a[k] == b[k] for k in a)
+
+
+def phase_campaign(torch):
+    """``run_campaign`` over the six datasets at ``CampaignConfig``'s defaults on the
+    card, each dataset's memo kept under a memo_dir; the same campaign again with
+    that memo_dir trains zero rows and finds the same fronts.  Then on seeds, with
+    3 islands: the sequential, stacked and async drivers give identical fronts,
+    counters, migrations and memos, and a run interrupted by a host failure at
+    batch CAMPAIGN_CRASH_AT and resumed from its checkpoint equals the
+    uninterrupted one.  K2/K3 launches are counted over the whole phase."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import campaign, codesign
+    from repro_torch.kernels.fused_qat import ops
+    from repro_torch.runtime import elastic, failure
+
+    tmp = OUT / "campaign_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    cfg = campaign.CampaignConfig(device="cuda", memo_dir=str(tmp / "memo"))
+    ops.reset_launch_counts()
+    with EvaluatorTally() as tally:
+        t0 = time.perf_counter()
+        res = campaign.run_campaign(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rerun = campaign.run_campaign(cfg)
+        base = dataclasses.replace(cfg.codesign_config("seeds"), memo_path=None,
+                                   **CAMPAIGN_ISLANDS)
+        drivers, island_s = {}, {}
+        for name, kw in (("sequential", {}), ("stacked", {"stacked_islands": True}),
+                         ("async", {"async_pipeline": True})):
+            memo = tmp / f"islands_{name}"
+            t0 = time.perf_counter()
+            r = codesign.run_codesign(dataclasses.replace(base, memo_path=str(memo), **kw))
+            island_s[name] = time.perf_counter() - t0
+            drivers[name] = _campaign_result(r, memo)
+        crash = elastic.DrillConfig(injector=failure.FailureInjector(
+            crash_at_step=CAMPAIGN_CRASH_AT, crash_mode="host"))
+        ck = str(tmp / "ck")
+        try:
+            codesign.run_codesign(dataclasses.replace(base, checkpoint_dir=ck, drill=crash))
+            crashed = False
+        except failure.HostFailure:
+            crashed = True
+        resumed_drill = elastic.DrillConfig()
+        resumed = codesign.run_codesign(dataclasses.replace(
+            base, checkpoint_dir=ck, resume=True, drill=resumed_drill,
+            memo_path=str(tmp / "islands_resumed")))
+        resumed = _campaign_result(resumed, tmp / "islands_resumed")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    want = tally.expected_launches(cfg.max_steps)
+    checks = {
+        "six_datasets": sorted(res.results) == sorted(cfg.datasets),
+        "fronts_nonempty_finite": all(
+            r.front_acc.size >= 1 and bool(np.isfinite(r.front_acc).all())
+            for r in res.results.values()),
+        "trained_rows": all(r.n_evaluations > 0 for r in res.results.values()),
+        "memo_rerun_trains_zero_rows": rerun.n_evaluations == 0,
+        "memo_rerun_same_fronts": all(
+            np.array_equal(rerun.results[d].front_acc, r.front_acc)
+            and np.array_equal(rerun.results[d].front_masks, r.front_masks)
+            for d, r in res.results.items()),
+        "stacked_equals_sequential": _same_result(drivers["stacked"], drivers["sequential"]),
+        "async_equals_sequential": _same_result(drivers["async"], drivers["sequential"]),
+        "drill_interrupted": crashed,
+        "resume_equals_uninterrupted": _same_result(resumed, drivers["sequential"]),
+        "launch_counts": launches == want,
+    }
+    emit("campaign", datasets=list(cfg.datasets), pop_size=cfg.pop_size,
+         n_generations=cfg.n_generations, max_steps=cfg.max_steps,
+         step_scale=cfg.step_scale, wall_s=wall, wall_s_by_dataset=res.wall_s,
+         rerun_wall_s_by_dataset=rerun.wall_s, n_evaluations=res.n_evaluations,
+         n_memo_hits=res.n_memo_hits, rerun_n_memo_hits=rerun.n_memo_hits,
+         mean_area_gain=res.mean_area_gain, mean_power_gain=res.mean_power_gain,
+         gains={d: {k: g[k] for k in ("conv_acc", "acc", "area_gain", "power_gain")}
+                for d, g in res.gains.items()},
+         seconds_per_generation={d: [h["gen_s"] for h in r.history]
+                                 for d, r in res.results.items()},
+         islands=CAMPAIGN_ISLANDS, island_wall_s=island_s,
+         island_n_evaluations=drivers["sequential"]["n_evaluations"],
+         resumed_rows_dispatched=resumed_drill.rows_dispatched,
+         graph_stats={k: tally.total(k) for k in tally.stats[0]},
+         launches=launches, expected_launches=want, checks=checks,
+         ok=all(checks.values()))
+    print(res.table, flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit(f"campaign checks failed: {checks}")
     return launches
 
 
@@ -592,25 +796,42 @@ def _profiled(torch, fn, trace: str) -> dict:
     kernels = _kernel_table(torch, prof)
     device_us = sum(v[1] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]
+    # from the first device kernel's start to the last one's end: the idle
+    # share of the device's own run, without the host work before it
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    span_us = max(t.end for t in spans) - min(t.start for t in spans)
     return dict(wall_s=wall, device_busy_us=device_us,
                 device_idle_share=1.0 - device_us / (wall * 1e6),
+                device_span_us=span_us, span_idle_share=1.0 - device_us / span_us,
                 kernel_launches=sum(v[0] for v in kernels.values()),
                 top=[{"name": n, "launches": c, "device_us": us} for n, (c, us) in top])
 
 
+PROFILE_GRAPH_STEPS = 200  # steps of the profiled call replayed from graphs
+
+
 def phase_profile(torch):
-    """Device time by kernel over 20 training steps of 24 cardio rows."""
+    """Device time by kernel over a call of 24 cardio rows (its steps and their
+    evaluation): 20 steps eager, and PROFILE_GRAPH_STEPS replayed from graphs
+    (after a first, capturing call)."""
     from repro_torch.core import qat, trainer
 
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
     mcfg, ecfg = qat.MLPConfig(sizes), trainer.EvalConfig(max_steps=20)
-    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
     rows, seeds = _cardio_rows(P, seed=5)
     params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
-    run(*rows, params0, idx)
-    torch.cuda.synchronize()
-    emit("profile", steps=20, rows=P,
-         **_profiled(torch, lambda: run(*rows, params0, idx), "profile_20_steps.json"))
+    for version, graph in (("eager", False), ("graph", None)):
+        if graph is None:  # long enough that a call's fixed host work is a small share
+            ecfg = trainer.EvalConfig(max_steps=PROFILE_GRAPH_STEPS)
+            params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
+        run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
+                                       graph=graph)
+        run(*rows, params0, idx)
+        torch.cuda.synchronize()
+        trace = f"profile_{version}_{ecfg.max_steps}_steps.json"
+        emit("profile", version=version, steps=ecfg.max_steps, rows=P,
+             **_profiled(torch, lambda: run(*rows, params0, idx), trace))
 
 
 # ---------------------------------------------------------------------------
@@ -1813,7 +2034,10 @@ def phase_step_ab(torch, other_src: Path):
     steps; blocks run other, this, this, other, AB_ROUNDS times, in one
     process on one card (the step is host-bound: two processes differ by
     more than the kernels do).  Both versions train to the same parameters
-    and accuracies, bit for bit, where their K2 and K3 give the same bits."""
+    and accuracies, bit for bit, where their K2 and K3 give the same bits.
+    The row program is the eager loop (``graph=False``), as before the
+    population step had its CUDA graph, so its step times stay comparable
+    with the earlier measurements of this case."""
     from repro_torch.core import qat, trainer
     from repro_torch.kernels.fused_qat import ops as qops
 
@@ -1822,7 +2046,8 @@ def phase_step_ab(torch, other_src: Path):
     versions = {"this": qops, "other": other}
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
     mcfg, ecfg = qat.MLPConfig(sizes), trainer.EvalConfig(max_steps=STEP_AB_STEPS)
-    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
+    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
+                                   graph=False)
     rows, seeds = _cardio_rows(P, seed=5)
     params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
     order = ["other", "this", "this", "other"] * AB_ROUNDS
@@ -1857,6 +2082,137 @@ def phase_step_ab(torch, other_src: Path):
          checks=checks, ok=all(checks.values()))
     if not all(checks.values()):
         raise SystemExit(f"kernel_ab codesign_step: {checks}")
+
+
+S_CANDIDATES = (10, 25, 50, 100, 200)  # block lengths --step-ab times against each other
+GRAPH_AB_ROUNDS = 3  # rounds of (eager, graph at each S, ..., eager) in --step-ab
+GEN_AB_ROUNDS = 2  # rounds of (eager, graph, graph, eager) co-design runs in --step-ab
+
+
+def phase_graph_ab(torch):
+    """The captured graph against the eager loop, in turns, in one process.
+
+    Steps: 24 cardio rows (the slice's shapes), one 600-step call a block,
+    eager and the graph at each block length of S_CANDIDATES in the order
+    eager, S..., S reversed, eager, GRAPH_AB_ROUNDS times; a block's wall
+    time (host clock between two synchronisations) over its steps.  Every
+    version trains to the same parameters and accuracies, bit for bit.  The
+    first call of each S captures its graphs: that time is kept apart.
+    Generations: ``run_codesign`` on cardio (pop 24, 600 steps, 2
+    generations), the evaluators alternately eager and graphed (eager,
+    graph, graph, eager, GEN_AB_ROUNDS times), seconds a generation from
+    its history; the two searches give the same fronts.  Then each under the
+    profiler (``phase_profile``): device busy time and idle share."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs.printed_mlp import codesign_config
+    from repro_torch.core import codesign, qat, trainer
+
+    (X_tr, y_tr, X_te, y_te), sizes = _cardio()
+    mcfg = qat.MLPConfig(sizes)
+    rows, seeds = _cardio_rows(P, seed=5)
+    programs, first_call_s = {}, {}
+    for name in ["eager"] + [f"S{S}" for S in S_CANDIDATES]:
+        ecfg = trainer.EvalConfig(max_steps=600, block_steps=int(name[1:]) if name[0] == "S"
+                                  else trainer.EvalConfig().block_steps)
+        programs[name] = trainer.make_row_program(
+            X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
+            graph=None if name[0] == "S" else False)
+    params0, idx = trainer.draw_rows(seeds, trainer.EvalConfig(max_steps=600), mcfg,
+                                     X_tr.shape[0])
+    trained = {}
+    for name, run in programs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trained[name] = run(*rows, params0, idx)
+        torch.cuda.synchronize()
+        first_call_s[name] = time.perf_counter() - t0
+    graphs = [n for n in programs if n != "eager"]
+    order = (["eager"] + graphs + graphs[::-1] + ["eager"]) * GRAPH_AB_ROUNDS
+    step_ms = {n: [] for n in programs}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        programs[name](*rows, params0, idx)
+        torch.cuda.synchronize()
+        step_ms[name].append((time.perf_counter() - t0) / 600 * 1e3)
+    med = {n: statistics.median(v) for n, v in step_ms.items()}
+    checks = {f"{n}_equals_eager": _same(torch, trained[n], trained["eager"]) for n in graphs}
+    emit("graph_ab", case="steps", rows=P, steps_per_block=600, order=order,
+         step_ms=step_ms, median_step_ms=med,
+         eager_over_graph={n: med["eager"] / med[n] for n in graphs},
+         first_call_s=first_call_s, stats={n: dict(r.stats) for n, r in programs.items()},
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"graph_ab steps: {checks}")
+
+    make = trainer.make_population_evaluator
+    cfg = dataclasses.replace(codesign_config("cardio", full=True), n_generations=2,
+                              device="cuda")
+    gen_s, fronts = {"eager": [], "graph": []}, {}
+    try:
+        for name in ["eager", "graph", "graph", "eager"] * GEN_AB_ROUNDS:
+            trainer.make_population_evaluator = (
+                functools.partial(make, graph=False) if name == "eager" else make)
+            res = codesign.run_codesign(cfg)
+            gen_s[name].append([h["gen_s"] for h in res.history])
+            fronts[name] = (res.front_acc, res.front_masks, res.n_evaluations)
+    finally:
+        trainer.make_population_evaluator = make
+    same = all(np.array_equal(a, b) for a, b in zip(fronts["eager"], fronts["graph"]))
+    emit("graph_ab", case="generations", dataset="cardio", pop_size=cfg.pop_size,
+         max_steps=cfg.max_steps, n_generations=cfg.n_generations, gen_s=gen_s,
+         median_gen_s={n: statistics.median(x for g in v for x in g) for n, v in gen_s.items()},
+         checks={"same_fronts": same}, ok=same)
+    if not same:
+        raise SystemExit("graph_ab generations: eager and graphed searches differ")
+
+    phase_profile(torch)
+
+
+def phase_capture_fails(torch):
+    """A capture that fails raises, and the trainer does not fall back to the
+    eager loop: a step that reads a value back to the host while it is being
+    captured (here an injected ``float(logits.sum())``) ends the call with an
+    error, no graph is cached, and only the warm-up's K2/K3 launches ran.
+    Run last: the failed capture leaves the CUDA stream state to the driver."""
+    from repro_torch.core import qat, trainer
+    from repro_torch.kernels.fused_qat import ops
+
+    (X_tr, y_tr, X_te, y_te), sizes = _cardio()
+    mcfg, ecfg = qat.MLPConfig(sizes), trainer.EvalConfig(max_steps=20)
+    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
+    rows, seeds = _cardio_rows(4, seed=3)
+    params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
+    cross_entropy = qat.cross_entropy
+
+    def reads_host(logits, labels):
+        if torch.cuda.is_current_stream_capturing():
+            float(logits.sum())  # a host read: not capturable
+        return cross_entropy(logits, labels)
+
+    before = dict(ops.LAUNCHES)
+    qat.cross_entropy = reads_host
+    try:
+        run(*rows, params0, idx)
+        error = None
+    except RuntimeError as e:
+        error = f"{type(e).__name__}: {e}"[:300]
+    finally:
+        qat.cross_entropy = cross_entropy
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    checks = {"capture_raised": error is not None,
+              "no_graph_cached": run.stats["captures"] == 0 and run.stats["replays"] == 0,
+              "only_warmup_launched": launched == {
+                  "fused_qat_forward": trainer.WARMUP_STEPS,
+                  "fused_qat_backward": trainer.WARMUP_STEPS}}
+    emit("capture_fails", error=error, launches=launched, stats=dict(run.stats),
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"capture_fails: {checks}")
 
 
 ENCODE_AB_CALLS = 4  # encodes a block in --kernel-ab's whisper case
@@ -1943,6 +2299,11 @@ def main() -> int:
         phase_attn_kernels(torch)
         phase_mm_attn_kernels(torch)
         return 0
+    if "--step-ab" in args:  # the graph checked against the eager loop, then timed
+        phase_placement(torch)
+        phase_graph_ab(torch)
+        phase_capture_fails(torch)
+        return 0
     if "--kernel-ab" in args:  # K1/K3 checked, then timed against another checkout's
         phase_kernels(torch)
         phase_qat_profiler(torch)
@@ -1956,6 +2317,8 @@ def main() -> int:
     phase_placement(torch)
     phase_parity(torch)
     launches = phase_slice(torch)
+    for kname, n in phase_campaign(torch).items():
+        launches[kname] += n
     phase_qat_profiler(torch)
     if profile:
         phase_profile(torch)
@@ -2028,6 +2391,7 @@ def main() -> int:
     })
     if not all(math.isfinite(r["ms"]) and r["launches"] > 0 for r in rows):
         raise SystemExit(f"a kernel has no time or was not launched on its path: {rows}")
+    phase_capture_fails(torch)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

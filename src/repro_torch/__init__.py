@@ -2,7 +2,7 @@
 
 A second package beside the JAX reference ``repro``: the same subpackage
 layout (``core``, ``kernels``, ``data``, ``configs``, ``models``,
-``launch``), plain PyTorch on tensors with an explicit ``device``, and
+``launch``, ``checkpoint``, ``runtime``), plain PyTorch on tensors with an explicit ``device``, and
 hand-written CUDA kernels for Hopper (``sm_90a``) where the reference has
 Pallas TPU kernels.  It imports neither ``jax`` nor anything of ``repro``.
 

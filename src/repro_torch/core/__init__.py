@@ -1,2 +1,2 @@
-"""Core modules of the port: ADC twin, QAT, trainer, genome, area, NSGA-II, co-design,
-the pruned-ADC model frontend."""
+"""Core modules of the port: ADC twin, QAT, trainer, genome, area, NSGA-II with its
+island drivers, co-design, campaign, memo store, the pruned-ADC model frontend."""

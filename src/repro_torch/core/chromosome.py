@@ -5,7 +5,8 @@ channel is forced kept at decode time) plus five categorical QAT genes:
 weight_bits, act_bits, batch_size, epochs and lr, each an index into its
 choice table.  The layout, and so the genome bytes the NSGA-II memo keys
 on, is the reference's ADC-only layout; the "act" and "wprec" gene groups
-wait for a later slice.
+wait for ROADMAP Queue 1 item 6 (``normalize_axes`` already validates an
+axes selection as the reference does).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ __all__ = [
     "EPOCH_CHOICES",
     "LR_CHOICES",
     "CAT_CARDINALITIES",
+    "AXES",
+    "normalize_axes",
     "n_mask_bits",
     "cat_cardinalities",
     "decode_batch",
@@ -37,6 +40,32 @@ CAT_CARDINALITIES = (
     len(EPOCH_CHOICES),
     len(LR_CHOICES),
 )
+
+
+# the reference's gene groups; only "adc" is ported
+AXES = ("adc", "act", "wprec")
+
+
+def normalize_axes(axes) -> tuple[str, ...]:
+    """Validate and canonicalise a gene-axes selection (the reference's check).
+
+    Accepts any iterable (or comma-separated string) of axis names;
+    returns them in the canonical ``("adc", "act", "wprec")`` order.  The
+    ``"adc"`` axis is mandatory.
+    """
+    if isinstance(axes, str):
+        axes = tuple(a.strip() for a in axes.split(",") if a.strip())
+    axes = tuple(axes)
+    unknown = [a for a in axes if a not in AXES]
+    if unknown:
+        raise ValueError(f"unknown genome axis(es) {unknown}; choose from {AXES}")
+    if "adc" not in axes:
+        raise ValueError(
+            "the 'adc' axis is mandatory: the per-input level masks are "
+            "the genome's structural backbone (drop levels by evolving "
+            "the masks, not by removing the axis)"
+        )
+    return tuple(a for a in AXES if a in axes)
 
 
 def n_mask_bits(n_channels: int, adc_bits: int) -> int:

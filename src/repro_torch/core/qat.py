@@ -204,6 +204,7 @@ def argmax(logits: torch.Tensor) -> torch.Tensor:
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """(P,) fraction of correct predictions over the batch axis."""
     hits = (argmax(logits) == labels).sum(-1)  # integer count: exact in any order
-    # times the fp32 reciprocal, as the reference's jnp.mean computes on XLA
-    inv = torch.tensor(1.0 / labels.shape[-1], dtype=torch.float32, device=hits.device)
+    # times the fp32 reciprocal, as the reference's jnp.mean computes on XLA;
+    # filled on the device, so a call on the card never waits for the host
+    inv = torch.full((), 1.0 / labels.shape[-1], dtype=torch.float32, device=hits.device)
     return hits.to(torch.float32) * inv

@@ -1,1 +1,1 @@
-"""Drivers of the port: the continuous-batching serving loop so far."""
+"""Drivers of the port: the continuous-batching serving loop and the co-design campaign CLI."""
