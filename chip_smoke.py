@@ -2,9 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
 
     python3 chip_smoke.py             # build, check every kernel, run every slice
-    python3 chip_smoke.py --profile   # also profile 20 training steps, and decode steps
-                                      # and a prefill (or encode) of each served model
-                                      # (gzipped traces to the OUT directory)
+    python3 chip_smoke.py --profile   # also profile 20 training steps, a graphed call
+                                      # ADC-only and with the genome axes, a refine call,
+                                      # and decode steps and a prefill (or encode) of
+                                      # each served model (gzipped traces to OUT)
     python3 chip_smoke.py --step-ab   # build, phase 4, then the population step and a
                                       # co-design generation timed eager and from the
                                       # CUDA graph in turns (the graph at block lengths
@@ -69,6 +70,18 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 drivers give identical fronts, counters, migrations and
                 memos, and a drilled host failure plus resume equals the
                 uninterrupted run; exact K2/K3 launch counts.
+6c. genome_slice
+                the three-axis genome (ADC masks, an activation approximation
+                a hidden layer, a weight precision a layer, ternary included),
+                the surrogate screen and the gradient/GA hybrid on cardio at
+                full width (3 generations): the graph's bits equal the eager
+                loop's for axes rows at P = 24 and P = 5, a row alone equals
+                it in the batch, 8 genomes on the card within the measured
+                bounds of the CPU path, a screened and warm-started search
+                with refinement every generation whose front is exact memo
+                rows, a deterministic refiner, exact K2/K3 launch counts; a
+                generation and a graphed step against ADC-only in the same
+                process, the surrogate's refits, the warm start and refines.
 7. attn_kernels K4 (flash attention) and K5 (flash-decode) against their plain
                 versions in bf16 and fp32, at yi-9b's prefill and decode shapes
                 and at the edge shapes of the CPU sweep; times by CUDA events
@@ -95,6 +108,9 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 on-threshold inputs; times by the profiler beside the plain
                 version, ``torch.searchsorted`` (the library yardstick) and the
                 bound.
+9b. repeat_bits K4 (bf16, yi-9b's prefill), K5 (bf16, yi-9b's decode) and K1
+                (internvl2's patches) called REPEAT_CALLS times each on the
+                same inputs: the same bits every call.
 10. mm_attn_kernels
                 K4 and K5 against their plain versions in bf16 at the shapes
                 internvl2-26b (48/8 heads, d 128) and whisper-medium (16/16
@@ -765,6 +781,284 @@ def phase_campaign(torch):
     return launches
 
 
+# the genome slice: ROADMAP Queue 1 items 6-7 on cardio at full width
+GENOME_AXES = ("adc", "act", "wprec")
+GENOME_SLICE = dict(genome_axes=GENOME_AXES, surrogate=True, surrogate_min_rows=16,
+                    hybrid_warm_frac=0.25, hybrid_refine_every=1, hybrid_grad_steps=30,
+                    n_generations=3)
+# Per-row |acc_card - acc_cpu| bounds of 8 three-axis genomes at 600 steps.
+# A ternary first layer makes sums that are 0 in exact arithmetic come out
+# +-1 ulp with a sign set by the order of summation, and the activation's
+# gradient at 0 flips with it, so those rows part from the first step: the
+# port's CPU path against the JAX package measured gaps up to 148 of 638
+# over 88 rows (tests/test_torch_genome_axes.py), every other row within 49.
+# On an H100 (80GB HBM3, 700 W) the card against the CPU path measured 0.086
+# for one of these 8 rows' two ternary rows and 0 for the six others.
+GENOME_PARITY_BOUND = {"ternary_first_layer": 0.25, "other": 0.08}
+GENOME_STEPS = 600  # training steps of the phase's row-program calls (the slice's max_steps)
+GENOME_STEP_ROUNDS = 2  # rounds of (adc, axes, axes, adc) calls timed
+
+
+def _axes_rows(n: int, seed: int):
+    """n three-axis cardio genomes whose act and wprec genes cover every choice
+    (ternary included); returns (evaluator rows, seeds, genomes)."""
+    import numpy as np
+
+    from repro_torch.core import chromosome
+
+    rng = np.random.default_rng(seed)
+    cards = chromosome.cat_cardinalities(GENOME_AXES, 2)
+    masks = rng.uniform(size=(n, C * 16)) < rng.uniform(0.1, 1.0, (n, 1))
+    cats = np.stack([rng.integers(0, c, n) for c in cards], 1).astype(np.int64)
+    cats[:, 5] = np.arange(n) % 4                  # relu, sat01, pwl2, step
+    cats[:, 6] = (np.arange(n) + 1) % 4            # first layer: po2-6, -4, ternary, po2-8
+    cats[:, 7] = rng.permutation(np.arange(n) % 4)
+    dec = chromosome.decode_batch(masks, cats, C, N_BITS, GENOME_AXES, 2)
+    rows = (dec["masks"], dec["weight_bits"], dec["act_bits"], dec["batch_size"],
+            dec["epochs"], dec["lr"])
+    return rows, (dec["act_sel"], dec["wprec"]), rng.integers(0, 2**31 - 1, n).astype(
+        np.int32), (masks, cats)
+
+
+class _Timed:
+    """Wall seconds of each call of ``module.name`` while installed (synchronised)."""
+
+    def __init__(self, torch, module, name: str):
+        self.torch, self.module, self.name, self.seconds = torch, module, name, []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_genome_slice(torch):
+    """The three-axis genome (act, wprec), the surrogate screen and the gradient/GA
+    hybrid on cardio at full width, trained through K2/K3 under the step's CUDA
+    graph.  Checks: the graph's bits equal the eager loop's for axes rows at P =
+    24 and P = 5 (every act and wprec choice, ternary included); a row alone
+    equals the same row in the batch; 8 genomes on the card within the measured
+    bounds of the port's CPU path; a ``run_codesign`` with the axes, the screen
+    (it defers rows) and the hybrid (warm start, refinement every generation),
+    whose front is all exact memo rows; the refiner a pure function of its
+    genomes; exact K2/K3 launch counts of that run.  Times: a generation and a
+    graphed step against ADC-only in the same process, the surrogate's refits,
+    the warm start and the refine calls."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+
+    from repro_torch.configs.printed_mlp import codesign_config
+    from repro_torch.core import codesign, hybrid, memo_store, qat, surrogate, trainer
+    from repro_torch.kernels.fused_qat import ops
+
+    (X_tr, y_tr, X_te, y_te), sizes = _cardio()
+    mcfg = qat.MLPConfig(sizes)
+    ecfg = trainer.EvalConfig(max_steps=GENOME_STEPS, genome_axes=GENOME_AXES)
+    checks = {}
+
+    # -- the graph against the eager loop, and a row alone against its batch
+    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
+    eager = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
+                                     graph=False)
+    rows, extra, seeds, _ = _axes_rows(P, seed=21)
+    params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
+    out = run(*rows, params0, idx, *extra)
+    checks["graph_equals_eager_p24"] = _same(torch, out, eager(*rows, params0, idx, *extra))
+    five = slice(3, 8)
+    sub = [r[five] for r in rows], {k: v[five] for k, v in params0.items()}, idx[five], [
+        e[five] for e in extra]
+    g5 = run(*sub[0], sub[1], sub[2], *sub[3])
+    checks["graph_equals_eager_p5"] = _same(torch, g5, eager(*sub[0], sub[1], sub[2], *sub[3]))
+    checks["p5_equals_its_rows_in_p24"] = _same(torch, g5, (out[0][five], {
+        k: v[five] for k, v in out[1].items()}))
+    alone_ok = True
+    for p in (0, 10, P - 1):
+        sl = slice(p, p + 1)
+        a1, p1 = run(*(r[sl] for r in rows), {k: v[sl] for k, v in params0.items()}, idx[sl],
+                     *(e[sl] for e in extra))
+        alone_ok &= bool(torch.equal(a1[0], out[0][p])) and all(
+            torch.equal(p1[k][0], out[1][k][p]) for k in p1)
+    checks["alone_equals_batch"] = alone_ok
+    checks["every_choice_covered"] = (set(extra[0][:, 0].tolist()) == {0, 1, 2, 3}
+                                      and set(extra[1].ravel().tolist()) == {0.0, 4.0, 6.0, 8.0}
+                                      and set(extra[1][3:8, 0].tolist()) >= {0.0})
+
+    # -- the card against the port's CPU path, 8 genomes
+    rows8, extra8, seeds8, _ = _axes_rows(8, seed=23)
+    p8, i8 = trainer.draw_rows(seeds8, ecfg, mcfg, X_tr.shape[0])
+    accs = {}
+    for dev in ("cuda", "cpu"):
+        prog = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device=dev)
+        accs[dev] = prog(*rows8, p8, i8, *extra8)[0].cpu()
+    gap = (accs["cuda"] - accs["cpu"]).abs().numpy()
+    ternary = extra8[1][:, 0] == 0.0
+    checks["card_within_cpu_bounds"] = bool(
+        (gap[ternary] <= GENOME_PARITY_BOUND["ternary_first_layer"]).all()
+        and (gap[~ternary] <= GENOME_PARITY_BOUND["other"]).all()
+        and torch.isfinite(accs["cuda"]).all())
+
+    # -- a graphed step with the axes against ADC-only, in turns
+    adc_cfg = trainer.EvalConfig(max_steps=GENOME_STEPS)
+    adc_run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, adc_cfg, device="cuda")
+    adc_run(*rows, params0, idx)  # its capture
+    step_ms = {"adc": [], "axes": []}
+    for _ in range(GENOME_STEP_ROUNDS):
+        for name in ("adc", "axes", "axes", "adc"):
+            t0 = time.perf_counter()
+            if name == "adc":
+                adc_run(*rows, params0, idx)
+            else:
+                run(*rows, params0, idx, *extra)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3 / GENOME_STEPS)
+
+    # -- the refiner: a pure function of its genomes
+    hcfg = hybrid.HybridConfig(grad_steps=GENOME_SLICE["hybrid_grad_steps"])
+    refine = hybrid.make_refiner(X_tr, y_tr, sizes, N_BITS, GENOME_AXES, hcfg, device="cuda")
+    _, _, _, (gm, gc) = _axes_rows(4, seed=25)
+    r1, r2 = refine(gm, gc), refine(gm, gc)
+    ra = refine(gm[1:2], gc[1:2])
+    checks["refiner_deterministic"] = all(np.array_equal(a, b) for a, b in zip(r1, r2))
+    checks["refiner_row_alone_equal"] = bool(np.array_equal(ra[0][0], r1[0][1])
+                                             and np.array_equal(ra[1][0], r1[1][1]))
+
+    # -- ADC-only and three-axis searches in one process; the latter is the path
+    tmp = OUT / "genome_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    base = dataclasses.replace(codesign_config("cardio", full=True),
+                               n_generations=GENOME_SLICE["n_generations"], device="cuda")
+    t0 = time.perf_counter()
+    adc_res = codesign.run_codesign(base)
+    adc_wall = time.perf_counter() - t0
+    cfg = dataclasses.replace(base, **GENOME_SLICE, memo_path=str(tmp / "memo"))
+    ops.reset_launch_counts()
+    with EvaluatorTally() as tally, _Timed(torch, surrogate.SurrogateScreen, "_fit") as fits, \
+            _Timed(torch, hybrid, "warm_start_genomes") as warm:
+        refine_s = []
+        make_refiner = hybrid.make_refiner
+
+        def timed_refiner(*a, **kw):
+            fn = make_refiner(*a, **kw)
+
+            def refine_call(m, c):
+                t0 = time.perf_counter()
+                out = fn(m, c)
+                refine_s.append(time.perf_counter() - t0)
+                return out
+
+            return refine_call
+
+        hybrid.make_refiner = timed_refiner
+        try:
+            t0 = time.perf_counter()
+            res = codesign.run_codesign(cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            hybrid.make_refiner = make_refiner
+    launches = dict(ops.LAUNCHES)
+    want = tally.expected_launches(cfg.max_steps)
+    # every front point is a trained (memo) row: the memo holds exact rows only,
+    # the screen's predictions live beside it
+    norm_area = codesign._make_cost_batch(GENOME_AXES, N_BITS, sizes)[1]
+    exact_objs = {(1.0 - float(o[0]), float(o[1]))
+                  for o in memo_store.load_memo(str(tmp / "memo")).values()}
+    exact = all((float(a), float(ar / norm_area)) in exact_objs
+                for a, ar in zip(res.front_acc, res.front_area))
+    checks.update({
+        "front_nonempty_finite": res.front_acc.size >= 1 and bool(
+            np.isfinite(res.front_acc).all()),
+        "front_cats_three_axes": res.front_cats.shape[1] == 8,
+        "screen_deferred_rows": res.n_deferred > 0,
+        "last_generation_trained": res.history[-1]["deferred"] == 0,
+        "front_exact": exact,
+        "warm_started": len(warm.seconds) == 1,
+        "refined_every_generation": len(refine_s) == cfg.n_generations,
+        "launch_counts": launches == want,
+        "k2_k3_launched": launches["fused_qat_forward"] > 0
+        and launches["fused_qat_backward"] > 0,
+    })
+    gen = lambda r: [h["gen_s"] for h in r.history]  # noqa: E731
+    emit("genome_slice", dataset="cardio", axes=list(GENOME_AXES),
+         pop_size=cfg.pop_size, max_steps=cfg.max_steps, n_generations=cfg.n_generations,
+         surrogate_min_rows=cfg.surrogate_min_rows, hybrid_warm_frac=cfg.hybrid_warm_frac,
+         hybrid_refine_every=cfg.hybrid_refine_every, hybrid_grad_steps=cfg.hybrid_grad_steps,
+         seconds_per_generation=gen(res), adc_only_seconds_per_generation=gen(adc_res),
+         wall_s=wall, adc_only_wall_s=adc_wall,
+         ms_per_graphed_step=step_ms,
+         ms_per_graphed_step_median={k: statistics.median(v) for k, v in step_ms.items()},
+         n_evaluations=res.n_evaluations, n_deferred=res.n_deferred,
+         n_memo_hits=res.n_memo_hits, adc_only_n_evaluations=adc_res.n_evaluations,
+         history=[{k: h[k] for k in ("n_evals", "deferred", "memo_hits", "eval_s", "gen_s")
+                   if k in h} for h in res.history],
+         surrogate_fit_s=fits.seconds, warm_start_s=warm.seconds, refine_call_s=refine_s,
+         front_size=int(res.front_acc.size), front_acc=res.front_acc.tolist(),
+         conv_acc=res.conv_acc, area_gain_at_5pct=codesign.gains_at_budget(res)["area_gain"],
+         card_vs_cpu_gap=gap.tolist(), ternary_first_layer=ternary.tolist(),
+         card_vs_cpu_bound=GENOME_PARITY_BOUND,
+         graph_stats={k: tally.total(k) for k in tally.stats[0]}, launches=launches,
+         expected_launches=want, checks=checks, ok=all(checks.values()))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit(f"genome_slice checks failed: {checks}")
+    return launches
+
+
+REPEAT_CALLS = 16  # calls of each kernel on the same inputs in phase repeat_bits
+
+
+def phase_repeat_bits(torch):
+    """K4 (bf16, yi-9b's prefill), K5 (bf16, yi-9b's decode) and K1 (internvl2's
+    patches) called REPEAT_CALLS times each, back to back on the same inputs:
+    every output must have the same bits as the first (a race in a kernel, an
+    mbarrier phase or a split-merge order, shows as a difference)."""
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.pruned_quant import ops as pq
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    B, Sq, Sk, Hq, Hkv, d, causal = YI_PREFILL
+    q, k, v = rn(B, Sq, Hq, d), rn(B, Sk, Hkv, d), rn(B, Sk, Hkv, d)
+    Bd, Hqd, Hkvd, S, dd = YI_DECODE
+    qd, kd, vd = rn(Bd, Hqd, dd), rn(Bd, S, Hkvd, dd), rn(Bd, S, Hkvd, dd)
+    kv_len = torch.randint(1, S + 1, (Bd,), generator=gen, device="cuda", dtype=torch.int32)
+    x, mask = k1_inputs(torch, VLM_PATCHES, "random", seed=7)
+    calls = {"flash_attention": lambda: fops.flash_attention(q, k, v, causal),
+             "decode_attention": lambda: dops.decode_attention(qd, kd, vd, kv_len),
+             "pruned_quantize": lambda: pq.pruned_quantize(x, mask)}
+    out = {}
+    for name, call in calls.items():
+        outs = [call() for _ in range(REPEAT_CALLS)]  # back to back, no wait between
+        torch.cuda.synchronize()
+        differ = [i for i, o in enumerate(outs[1:], 1) if not torch.equal(o, outs[0])]
+        out[name] = {"calls": REPEAT_CALLS, "differing_calls": differ}
+    ok = not any(r["differing_calls"] for r in out.values())
+    emit("repeat_bits", shapes={"flash_attention": list(YI_PREFILL),
+                                "decode_attention": list(YI_DECODE),
+                                "pruned_quantize": list(VLM_PATCHES)},
+         kernels=out, ok=ok)
+    if not ok:
+        raise SystemExit(f"a kernel gave other bits on the same inputs: {out}")
+
+
 def _kernel_table(torch, prof) -> dict[str, list]:
     """[launches, device us] by kernel name (its first 80 characters) of a profile."""
     kernels: dict[str, list] = {}
@@ -814,8 +1108,9 @@ PROFILE_GRAPH_STEPS = 200  # steps of the profiled call replayed from graphs
 def phase_profile(torch):
     """Device time by kernel over a call of 24 cardio rows (its steps and their
     evaluation): 20 steps eager, and PROFILE_GRAPH_STEPS replayed from graphs
-    (after a first, capturing call)."""
-    from repro_torch.core import qat, trainer
+    (after a first, capturing call), ADC-only and with the three genome axes;
+    then one refine call of the hybrid (4 members, eager)."""
+    from repro_torch.core import hybrid, qat, trainer
 
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
     mcfg, ecfg = qat.MLPConfig(sizes), trainer.EvalConfig(max_steps=20)
@@ -832,6 +1127,21 @@ def phase_profile(torch):
         trace = f"profile_{version}_{ecfg.max_steps}_steps.json"
         emit("profile", version=version, steps=ecfg.max_steps, rows=P,
              **_profiled(torch, lambda: run(*rows, params0, idx), trace))
+    ecfg = trainer.EvalConfig(max_steps=PROFILE_GRAPH_STEPS, genome_axes=GENOME_AXES)
+    rows, extra, seeds, (gm, gc) = _axes_rows(P, seed=5)
+    params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
+    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
+    run(*rows, params0, idx, *extra)
+    torch.cuda.synchronize()
+    emit("profile", version="graph_axes", steps=ecfg.max_steps, rows=P,
+         **_profiled(torch, lambda: run(*rows, params0, idx, *extra),
+                     f"profile_graph_axes_{ecfg.max_steps}_steps.json"))
+    refine = hybrid.make_refiner(X_tr, y_tr, sizes, N_BITS, GENOME_AXES, hybrid.HybridConfig(
+        grad_steps=GENOME_SLICE["hybrid_grad_steps"]), device="cuda")
+    refine(gm[:4], gc[:4])
+    emit("profile", version="refine_call", members=4,
+         grad_steps=GENOME_SLICE["hybrid_grad_steps"],
+         **_profiled(torch, lambda: refine(gm[:4], gc[:4]), "profile_refine_call.json"))
 
 
 # ---------------------------------------------------------------------------
@@ -2319,12 +2629,15 @@ def main() -> int:
     launches = phase_slice(torch)
     for kname, n in phase_campaign(torch).items():
         launches[kname] += n
+    for kname, n in phase_genome_slice(torch).items():
+        launches[kname] += n
     phase_qat_profiler(torch)
     if profile:
         phase_profile(torch)
     attn = phase_attn_kernels(torch)
     phase_lm_parity(torch)
     k1 = phase_frontend_kernel(torch)
+    phase_repeat_bits(torch)
     phase_mm_attn_kernels(torch)
     phase_vlm_parity(torch)
     phase_audio_parity(torch)

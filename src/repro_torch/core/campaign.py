@@ -17,8 +17,8 @@ evaluator (a CUDA graph a block of training steps on the card, see
 (``core.memo_store``): a rerun of the same campaign trains zero rows.
 ``num_islands``, ``stacked_islands`` and ``async_pipeline`` select the
 island drivers, ``checkpoint_dir`` / ``resume`` the elastic runner, as in
-the reference; ``device`` picks the card (default) or the CPU.  Options
-not ported yet raise ``NotImplementedError`` (``codesign.NOT_PORTED``).
+the reference; so do ``genome_axes``, ``surrogate`` and the ``hybrid_*``
+knobs; ``device`` picks the card (default) or the CPU.
 
     from repro_torch.core import campaign
     res = campaign.run_campaign(campaign.CampaignConfig())
@@ -219,7 +219,6 @@ def format_gains_table(
 def run_campaign(cfg: CampaignConfig = CampaignConfig()) -> CampaignResult:
     """Run the co-design search on every dataset and tabulate the gains."""
     cfg.validate()
-    cfg.codesign_config(cfg.datasets[0]).check_ported()  # before any dataset trains
     results: dict[str, codesign.CodesignResult] = {}
     gains: dict[str, dict] = {}
     wall_s: dict[str, float] = {}

@@ -9,19 +9,23 @@ section II-C:
     obj0 = accuracy miss  (1 - test accuracy of the QAT-trained MLP)
     obj1 = total ADC area (proxy model, normalised to the conventional ADC)
 
+With genome axes beyond ``"adc"`` (activation approximations, per-layer
+weight precision) obj1 widens to the whole printed system, normalised to
+the conventional bank plus the default MLP.
+
 The reference's search drivers are all here: one population or islands
 (sequential, stacked into one population call a generation, or the async
 pipeline that varies and plans island i+1 while island i trains), the
 memo (``memoize``) and its store on disk (``memo_path``), GA-state
 checkpoints with resume, and chaos drills (``drill``), the last two
-through ``runtime.elastic.ElasticGARunner``.  ``use_fused_kernel`` is
-accepted either way: the port's first QAT layer is always the fused K2/K3
-pair, which the reference's own "identical search outcome" allows.
+through ``runtime.elastic.ElasticGARunner``; the surrogate screen
+(``core.surrogate``) and the gradient/GA hybrid (``core.hybrid``) too.
+``use_fused_kernel`` is accepted either way: the port's first QAT layer
+is always the fused K2/K3 pair, which the reference's own "identical
+search outcome" allows.
 
-Not ported yet, each raising ``NotImplementedError`` (see
-:data:`NOT_PORTED`): genome axes beyond ``"adc"`` (ROADMAP Queue 1 item
-6), the surrogate screen and the gradient/GA hybrid (item 7) and the
-evaluation-service backend (item 8).
+Not ported yet (see :data:`NOT_PORTED`): the evaluation-service backend
+(ROADMAP Queue 1 item 8), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import area as area_model
-from repro_torch.core import chromosome, memo_store, nsga2, qat, trainer
+from repro_torch.core import chromosome, hybrid, memo_store, nsga2, qat, surrogate, trainer
 from repro_torch.data import uci_synth
 from repro_torch.device import resolve_device
 from repro_torch.runtime import elastic as elastic_rt
@@ -50,9 +54,6 @@ __all__ = [
 ]
 
 NOT_PORTED = {
-    "genome_axes": "genome axes beyond 'adc' are not ported yet: ROADMAP Queue 1 item 6",
-    "surrogate": "the surrogate screen is not ported yet: ROADMAP Queue 1 item 7",
-    "hybrid": "the gradient/GA hybrid is not ported yet: ROADMAP Queue 1 item 7",
     "service": "the evaluation service is not ported yet: ROADMAP Queue 1 item 8",
 }
 
@@ -94,12 +95,22 @@ class CodesignConfig:
     checkpoint_every: int = 1
     resume: bool = False
     drill: "elastic_rt.DrillConfig | None" = None
-    # validated as the reference does; only ("adc",) runs (item 6)
+    # the gene groups the search evolves (core.chromosome.AXES): "adc"
+    # (mandatory) plus "act" (an activation approximation per hidden
+    # layer) and "wprec" (a weight precision per layer, ternary included);
+    # a tuple or "adc,act,wprec".  The default is the paper's ADC-only space
     genome_axes: tuple[str, ...] | str = ("adc",)
-    # validated as the reference does; enabling either raises (item 7)
+    # surrogate pre-screening (core.surrogate): train only the planned rows
+    # a memo-trained ensemble predicts undominated, plus an exploration
+    # slice; the rest are deferred and trained the next time they are
+    # planned.  Below surrogate_min_rows memo rows everything trains
     surrogate: bool = False
     surrogate_min_rows: int = 32
     surrogate_explore_frac: float = 0.15
+    # gradient/GA hybrid (core.hybrid): hybrid_warm_frac of every island's
+    # first population from hardened relaxed descents (exactly re-scored
+    # first); every hybrid_refine_every generations, front-0 members
+    # gradient-polished into extra children; hybrid_grad_steps a descent
     hybrid_warm_frac: float = 0.0
     hybrid_refine_every: int = 0
     hybrid_grad_steps: int = 30
@@ -109,9 +120,7 @@ class CodesignConfig:
         """The reference's driver-flag validation matrix: every rejected combination.
 
         Every entry point (:func:`run_codesign`, ``CampaignConfig.validate``,
-        the CLI) routes through here first.  Options that are valid but not
-        ported are refused afterwards, by :func:`run_codesign`, with
-        ``NotImplementedError``.  Returns ``self``.
+        the CLI) routes through here first.  Returns ``self``.
         """
         self.axes()  # raises on unknown/missing genome axes
         if self.pop_size < 2:
@@ -182,14 +191,28 @@ class CodesignConfig:
         return self
 
     def check_ported(self) -> "CodesignConfig":
-        """Raise ``NotImplementedError`` for a valid option the port lacks."""
-        if self.axes() != ("adc",):
-            raise NotImplementedError(NOT_PORTED["genome_axes"])
-        if self.surrogate:
-            raise NotImplementedError(NOT_PORTED["surrogate"])
-        if self.hybrid_warm_frac > 0.0 or self.hybrid_refine_every > 0:
-            raise NotImplementedError(NOT_PORTED["hybrid"])
+        """Every valid configuration runs on the port; returns ``self``.
+
+        Only the evaluation-service backend is not ported, and
+        :func:`make_service_backend` refuses it itself.
+        """
         return self
+
+    def make_screen(self, n_mask_bits: int, cat_cardinalities) -> (
+        "surrogate.SurrogateScreen | None"
+    ):
+        """The configured surrogate screen stage, or None (exact path)."""
+        if not self.surrogate:
+            return None
+        return surrogate.SurrogateScreen(
+            n_mask_bits, cat_cardinalities,
+            surrogate.SurrogateConfig(
+                min_rows=self.surrogate_min_rows,
+                explore_frac=self.surrogate_explore_frac,
+                seed=self.seed,
+                device=self.device,
+            ),
+        )
 
     def axes(self) -> tuple[str, ...]:
         """The normalized genome-axes tuple (canonical order, validated)."""
@@ -264,7 +287,7 @@ class CodesignResult:
     dataset: str
     spec: uci_synth.DatasetSpec
     front_masks: np.ndarray        # (F, C, 2^N)
-    front_cats: np.ndarray         # (F, 5)
+    front_cats: np.ndarray         # (F, n_cats): 5 + the enabled axes'
     front_acc: np.ndarray          # (F,)
     front_area: np.ndarray         # (F,) absolute cm^2
     front_power: np.ndarray        # (F,) absolute mW
@@ -274,7 +297,7 @@ class CodesignResult:
     history: list
     n_evaluations: int = 0         # QAT rows actually trained by the GA
     n_memo_hits: int = 0           # QAT rows answered from the genome memo
-    n_deferred: int = 0            # rows answered by a surrogate: 0 in the port
+    n_deferred: int = 0            # rows answered by the surrogate instead
     # island-model telemetry (None for the single-population engine):
     island_history: list | None = None   # per-island NSGA2.history lists
     migrations: list | None = None       # per-wave acceptance counts
@@ -294,22 +317,53 @@ def _genome_seeds(mask_genes: np.ndarray, cat_genes: np.ndarray) -> np.ndarray:
     return np.asarray([zlib.crc32(k) & 0x7FFFFFFF for k in keys], np.int32)
 
 
-def _rows(dec: dict) -> tuple:
-    """The evaluator's per-row arrays of a decoded batch."""
+def _rows(dec: dict, seeds: np.ndarray) -> tuple:
+    """The evaluator's per-row arrays of a decoded batch: the base rows, the
+    seeds, then the enabled axes' rows in canonical order (none ADC-only)."""
+    extra = tuple(dec[k] for k in ("act_sel", "wprec") if k in dec)
     return (dec["masks"], dec["weight_bits"], dec["act_bits"], dec["batch_size"],
-            dec["epochs"], dec["lr"])
+            dec["epochs"], dec["lr"], seeds) + extra
+
+
+def _make_cost_batch(axes: tuple[str, ...], adc_bits: int, layer_sizes):
+    """(cost_batch, norm_area, norm_power) of the area objective.
+
+    ADC-only keeps the paper's objective: the pruned comparator bank over
+    the conventional bank.  With more axes it widens to the whole printed
+    system (bank + weighted-sum precision + activation circuits) over the
+    conventional bank plus the default (po2-8, exact ReLU) bespoke MLP.
+    """
+    layer_sizes = list(layer_sizes)
+    conv_area, conv_power = area_model.conventional_cost(layer_sizes[0], adc_bits)
+    if axes == ("adc",):
+        def cost_batch(dec: dict) -> tuple[np.ndarray, np.ndarray]:
+            return area_model.adc_cost_batch(dec["masks"], adc_bits)
+
+        return cost_batch, conv_area, conv_power
+
+    mlp_area, mlp_power = area_model.mlp_pow2_cost(layer_sizes)
+
+    def cost_batch(dec: dict) -> tuple[np.ndarray, np.ndarray]:
+        return area_model.genome_area_batch(
+            dec["masks"], adc_bits, layer_sizes, dec["weight_bits"], dec["act_bits"],
+            act_sel=dec.get("act_sel"), wprec=dec.get("wprec"),
+        )
+
+    return cost_batch, conv_area + mlp_area, conv_power + mlp_power
 
 
 def run_codesign(cfg: CodesignConfig) -> CodesignResult:
-    cfg.validate().check_ported()
+    cfg.validate()
     X, y, spec = uci_synth.load(cfg.dataset)
     X_tr, y_tr, X_te, y_te = uci_synth.stratified_split(X, y, 0.7, cfg.seed)
     mlp_cfg = qat.MLPConfig(
         layer_sizes=(spec.n_features, spec.hidden, spec.n_classes),
         adc_bits=cfg.adc_bits,
     )
+    axes = cfg.axes()
+    n_layers = len(mlp_cfg.layer_sizes) - 1
     eval_cfg = trainer.EvalConfig(
-        max_steps=cfg.max_steps, step_scale=cfg.step_scale, seed=cfg.seed
+        max_steps=cfg.max_steps, step_scale=cfg.step_scale, seed=cfg.seed, genome_axes=axes
     )
     # evaluators live in a mutable dict so the recovery path can swap in
     # rebuilt ones mid-campaign: every callback reads it at call time
@@ -325,6 +379,11 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
             evaluators[name] = evaluators[name].rebuild(n_devices)
 
     conv_area, conv_power = area_model.conventional_cost(spec.n_features, cfg.adc_bits)
+    cost_batch, norm_area, _ = _make_cost_batch(axes, cfg.adc_bits, mlp_cfg.layer_sizes)
+
+    def decode(mask_genes: np.ndarray, cat_genes: np.ndarray) -> dict:
+        return chromosome.decode_batch(mask_genes, cat_genes, spec.n_features, cfg.adc_bits,
+                                       axes=axes, n_layers=n_layers)
 
     # chaos-drill tap: every batch sent to an evaluator passes here (one
     # ordinal per non-empty batch, rows accumulated) BEFORE dispatch, so an
@@ -347,15 +406,15 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
         The area pass runs on the host while the card trains; resolved at
         once, this is the blocking callback (``evaluate`` below).
         """
-        dec = chromosome.decode_batch(mask_genes, cat_genes, spec.n_features, cfg.adc_bits)
+        dec = decode(mask_genes, cat_genes)
         seeds = _genome_seeds(mask_genes, cat_genes)
         _observe_batch(mask_genes.shape[0])
-        resolve_acc = evaluators["pop"].dispatch(*_rows(dec), seeds)
-        areas, _ = area_model.adc_cost_batch(dec["masks"], cfg.adc_bits)
+        resolve_acc = evaluators["pop"].dispatch(*_rows(dec, seeds))
+        areas, _ = cost_batch(dec)
 
         def resolve() -> np.ndarray:
             accs = np.asarray(resolve_acc())
-            return np.stack([1.0 - accs, areas / conv_area], axis=1)
+            return np.stack([1.0 - accs, areas / norm_area], axis=1)
 
         return resolve
 
@@ -371,16 +430,15 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
         )
 
         def evaluate_stacked(batches):
-            decs = [chromosome.decode_batch(m, c, spec.n_features, cfg.adc_bits)
-                    for m, c in batches]
+            decs = [decode(m, c) for m, c in batches]
             for m, _ in batches:
                 if m.shape[0]:
                     _observe_batch(m.shape[0])
             resolve_accs = evaluators["islands"].dispatch(
-                [_rows(d) + (_genome_seeds(m, c),) for d, (m, c) in zip(decs, batches)]
+                [_rows(d, _genome_seeds(m, c)) for d, (m, c) in zip(decs, batches)]
             )
-            areas = [area_model.adc_cost_batch(d["masks"], cfg.adc_bits)[0] for d in decs]
-            return [np.stack([1.0 - np.asarray(a), ar / conv_area], axis=1)
+            areas = [cost_batch(d)[0] for d in decs]
+            return [np.stack([1.0 - np.asarray(a), ar / norm_area], axis=1)
                     for a, ar in zip(resolve_accs(), areas)]
 
         return evaluate_stacked
@@ -393,12 +451,15 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
         memoize=cfg.memoize, crossover_rate=cfg.crossover_rate,
         mutation_rate=cfg.mutation_rate,
     )
+    n_mask_bits = chromosome.n_mask_bits(spec.n_features, cfg.adc_bits)
+    cat_cards = chromosome.cat_cardinalities(axes, n_layers)
     ga_kwargs = dict(
-        n_mask_bits=chromosome.n_mask_bits(spec.n_features, cfg.adc_bits),
-        cat_cardinalities=chromosome.cat_cardinalities(),
+        n_mask_bits=n_mask_bits,
+        cat_cardinalities=cat_cards,
         evaluate=evaluate,
         cfg=ga_cfg,
         memo=preload,
+        screen=cfg.make_screen(n_mask_bits, cat_cards),
     )
     if cfg.num_islands > 1:
         ga = nsga2.IslandNSGA2(
@@ -418,6 +479,9 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
                 return ga.run_async(dispatch_evaluate, checkpoint_hook=hook)
             return ga.run(checkpoint_hook=hook)
 
+    if cfg.hybrid_warm_frac > 0.0 or cfg.hybrid_refine_every > 0:
+        run_ga = _hybrid_wiring(cfg, ga, run_ga, X_tr, y_tr, mlp_cfg, axes)
+
     recoveries = None
     if cfg.checkpoint_dir is not None or drill is not None:
         out, recoveries = _run_elastic(cfg, ga, run_ga, rebuild_evaluators)
@@ -426,21 +490,19 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
     if cfg.memo_path and cfg.memoize:
         memo_store.save_memo(cfg.memo_path, ga.memo, cfg.memo_fingerprint())
 
-    dec = chromosome.decode_batch(out["masks"], out["cats"], spec.n_features, cfg.adc_bits)
-    front_area, front_power = area_model.adc_cost_batch(dec["masks"], cfg.adc_bits)
+    dec = decode(out["masks"], out["cats"])
+    front_area, front_power = cost_batch(dec)
     front_acc = 1.0 - out["objs"][:, 0]
 
     # conventional-ADC baseline accuracy: full mask + default hyper-params,
     # best of several inits (the [7] baseline is a tuned bespoke circuit).
     # Explicit replicate seeds: genome-derived seeds would collapse the
-    # identical replicates onto one init.
+    # identical replicates onto one init.  All-zero categorical genes decode
+    # to every group's default (po2-8 weights, exact ReLU), whatever the axes
     n_seeds = 4
-    base = chromosome.decode_batch(
-        np.ones((n_seeds, chromosome.n_mask_bits(spec.n_features, cfg.adc_bits)), bool),
-        np.zeros((n_seeds, len(chromosome.cat_cardinalities())), np.int64),
-        spec.n_features, cfg.adc_bits,
-    )
-    base_accs = evaluators["pop"](*_rows(base), np.arange(n_seeds, dtype=np.int32))
+    base = decode(np.ones((n_seeds, n_mask_bits), bool),
+                  np.zeros((n_seeds, len(cat_cards)), np.int64))
+    base_accs = evaluators["pop"](*_rows(base, np.arange(n_seeds, dtype=np.int32)))
     return CodesignResult(
         dataset=cfg.dataset,
         spec=spec,
@@ -459,8 +521,59 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
         island_history=out.get("island_history"),
         migrations=out.get("migrations"),
         recoveries=recoveries,
-        genome_axes=cfg.axes(),
+        genome_axes=axes,
     )
+
+
+def _hybrid_wiring(cfg: CodesignConfig, ga, run_ga, X_tr, y_tr, mlp_cfg, axes):
+    """Install the gradient/GA hybrid on ``ga``; returns the wrapped ``run_ga``.
+
+    The refiner goes on every engine (``set_refiner``); the returned
+    ``run_ga`` first warm-starts a fresh campaign: descend, exact-score the
+    hardened genomes through island 0's ``score_pool`` (the memo's plan /
+    commit contract: they land in the memo ahead of generation 0 and count
+    as island 0's evaluations), and deal them across the islands in Pareto
+    order.  A restored engine (resume, rollback) already has its population.
+    """
+    engines = ga.islands if cfg.num_islands > 1 else [ga]
+    k_warm = int(cfg.hybrid_warm_frac * cfg.pop_size)  # per island
+    hcfg = hybrid.HybridConfig(
+        grad_steps=cfg.hybrid_grad_steps,
+        # enough restarts that (after snapshot dedupe) every island can
+        # usually be dealt its full warm share
+        n_restarts=max(4, -(-k_warm * len(engines) // 4)),
+        seed=cfg.seed,
+    )
+    if cfg.hybrid_refine_every > 0:
+        refiner = hybrid.make_refiner(X_tr, y_tr, mlp_cfg.layer_sizes, cfg.adc_bits, axes,
+                                      hcfg, device=cfg.device)
+        for eng in engines:
+            eng.set_refiner(refiner, cfg.hybrid_refine_every)
+
+    def seed_warm_populations() -> None:
+        wm, wc = hybrid.warm_start_genomes(X_tr, y_tr, mlp_cfg.layer_sizes, cfg.adc_bits,
+                                           axes, hcfg, device=cfg.device)
+        if not wm.shape[0] or k_warm <= 0:
+            return
+        objs = engines[0].score_pool(wm, wc)
+        # deal in Pareto order (rank asc, crowding desc within front),
+        # round-robin so every island gets an even slice of the front
+        order: list[int] = []
+        for front in nsga2.fast_non_dominated_sort(objs):
+            crowd = nsga2.crowding_distance(objs[front])
+            order.extend(front[np.argsort(-crowd, kind="stable")].tolist())
+        take = np.asarray(order[: k_warm * len(engines)], np.int64)
+        for i, eng in enumerate(engines):
+            sel = take[i :: len(engines)][:k_warm]
+            if sel.size:
+                eng.seed_warm(wm[sel], wc[sel])
+
+    def run_hybrid(hook):
+        if cfg.hybrid_warm_frac > 0.0 and engines[0].pop is None:
+            seed_warm_populations()
+        return run_ga(hook)
+
+    return run_hybrid
 
 
 def make_service_backend(cfg: CodesignConfig, wave_slots: int = 4) -> dict:

@@ -51,9 +51,12 @@ Its sequential, stacked (one cross-island population call a generation,
 results.  ``state_dict`` / ``set_state`` snapshot an engine or a driver
 at a generation boundary (``runtime.elastic``, ``checkpoint``).
 
-Not ported yet (ROADMAP Queue 1 item 7): the surrogate screen stage
-(``screen=``) and the gradient/GA hybrid hooks (``seed_warm``,
-``set_refiner``, ``score_pool``); they raise ``NotImplementedError``.
+An optional screen stage (``screen=``, ``core.surrogate``) splits each
+planned pool into rows to train and rows answered by a prediction, kept in
+a deferred side table beside the memo and trained the next time they are
+planned; the gradient/GA hybrid (``core.hybrid``) enters through
+``seed_warm``, ``set_refiner`` and ``score_pool``.  With neither, every
+driver is bit for bit the plain loop.
 """
 
 from __future__ import annotations
@@ -66,11 +69,6 @@ from typing import Callable, Sequence
 import numpy as np
 
 from repro_torch.core import evalpipe
-
-NOT_PORTED = (
-    "the surrogate screen and the gradient/GA hybrid hooks are not ported yet "
-    "(ROADMAP Queue 1 item 7)"
-)
 
 __all__ = [
     "fast_non_dominated_sort",
@@ -264,7 +262,7 @@ class NSGA2:
         cfg: NSGA2Config = NSGA2Config(),
         memo: dict[bytes, np.ndarray] | None = None,
         memo_lock: "threading.RLock | None" = None,
-        screen=None,
+        screen: "evalpipe.ScreenStage | None" = None,
     ):
         """``evaluate(masks, cats) -> (P, M) objectives`` (minimised).
 
@@ -291,11 +289,18 @@ class NSGA2:
         several engines).  Defaults to a private re-entrant lock — free
         when uncontended, so single-threaded use is unchanged.
 
-        ``screen`` (the surrogate screen stage) is not ported: anything
-        but ``None`` raises ``NotImplementedError``.
+        ``screen`` plugs a ``core.evalpipe.ScreenStage`` into the plan
+        half: planned rows the screen defers are answered with its
+        predicted objectives (kept in a side table next to the memo,
+        flagged, and force-trained on their next plan) instead of being
+        evaluated.  ``None`` (default) keeps the exact screen-less pipeline —
+        bit-for-bit, counters included.  Requires ``cfg.memoize``.
         """
-        if screen is not None:
-            raise NotImplementedError(NOT_PORTED)
+        if screen is not None and not cfg.memoize:
+            raise ValueError(
+                "a screen stage needs the memo pipeline (its deferred "
+                "side table rides next to the memo); set memoize=True"
+            )
         self.n_mask_bits = n_mask_bits
         self.cat_card = np.asarray(cat_cardinalities, dtype=np.int64)
         self.evaluate = evaluate
@@ -304,9 +309,24 @@ class NSGA2:
         self.history: list[dict] = []
         self._memo: dict[bytes, np.ndarray] = dict(memo) if memo else {}
         self._memo_lock = memo_lock if memo_lock is not None else threading.RLock()
+        # deferred side table: screen-predicted objectives for rows the
+        # pipeline chose not to train (aliased across islands exactly
+        # like the memo); empty whenever screen is None
+        self._deferred: dict[bytes, np.ndarray] = {}
+        self._screen = screen
+        # gradient/GA hybrid hooks (core.hybrid): warm genomes spliced into
+        # the setup pool (seed_warm) and an optional refinement operator
+        # injected into step_begin (set_refiner).  Both default off, which
+        # keeps the engine bit-for-bit the plain loop.
+        self._warm: tuple[np.ndarray, np.ndarray] | None = None
+        self._refine: Callable[
+            [np.ndarray, np.ndarray], tuple[np.ndarray, np.ndarray]
+        ] | None = None
+        self._refine_every = 0
+        self._refine_top_k = 0
         self.n_evaluations = 0  # rows actually sent to the evaluator
         self.n_memo_hits = 0
-        self.n_deferred = 0  # rows a screen answered: 0 until the screen is ported
+        self.n_deferred = 0  # rows answered by this engine's screen
         # live loop state, established by setup() and advanced by step()
         self.pop: Genome | None = None
         self.objs: np.ndarray | None = None
@@ -318,6 +338,7 @@ class NSGA2:
         self._t_gen = 0.0
         self._evals_before = 0
         self._hits_before = 0
+        self._deferred_before = 0
 
     @property
     def memo(self) -> dict[bytes, np.ndarray]:
@@ -328,8 +349,8 @@ class NSGA2:
     def _evaluate(self, masks: np.ndarray, cats: np.ndarray) -> np.ndarray:
         """Evaluate a pool, training only genomes never seen before.
 
-        The blocking schedule over the evaluation pipeline: plan via
-        :meth:`plan_pool`, dispatch the train rows through
+        The blocking schedule over the evaluation pipeline: plan (+
+        screen) via :meth:`plan_pool`, dispatch the train rows through
         the synchronous callback, commit via :meth:`commit_pool` — the
         same stages every other driver (stacked, async, service wave)
         reorders but never re-implements.
@@ -427,6 +448,16 @@ class NSGA2:
     def setup_begin(self) -> tuple[np.ndarray, np.ndarray]:
         """Draw the generation-0 pool; returns its (masks, cats)."""
         pop = self._init_population()
+        if self._warm is not None:
+            wm, wc = self._warm
+            k = min(wm.shape[0], self.cfg.pop_size - 1)
+            # rows 1..k: row 0 stays the conventional-ADC baseline.  The
+            # displaced random rows were already drawn by _init_population,
+            # so the host RNG stream — and every later variation draw — is
+            # exactly the warm-less run's.
+            if k > 0:
+                pop.masks[1 : 1 + k] = wm[:k]
+                pop.cats[1 : 1 + k] = wc[:k]
         self._pending = (pop.masks, pop.cats)
         return pop.masks, pop.cats
 
@@ -451,9 +482,23 @@ class NSGA2:
         self._t_gen = time.perf_counter()
         self._evals_before = self.n_evaluations
         self._hits_before = self.n_memo_hits
+        self._deferred_before = self.n_deferred
         kids = self._make_children(self.pop, self.rank, self.crowd)
         allm = np.concatenate([self.pop.masks, kids.masks])
         allc = np.concatenate([self.pop.cats, kids.cats])
+        if (
+            self._refine is not None
+            and (self.gen + 1) % self._refine_every == 0
+        ):
+            # refinement wave: gradient-polish the top-crowding front-0
+            # members (the emigrant pick — deterministic, no host RNG) and
+            # append the results as extra children.  _select handles the
+            # larger pool; the plan/dedupe path prices a refined child
+            # equal to its parent (or to any resident) at zero rows.
+            em, ec, _ = self.emigrants(self._refine_top_k)
+            rm, rc = self._refine(em, ec)
+            allm = np.concatenate([allm, np.asarray(rm, bool)])
+            allc = np.concatenate([allc, np.asarray(rc, np.int64)])
         self._pending = (allm, allc)
         return allm, allc
 
@@ -473,7 +518,7 @@ class NSGA2:
             "best_obj1": float(self.objs[:, 1].min()) if self.objs.shape[1] > 1 else None,
             "n_evals": int(self.n_evaluations - self._evals_before),
             "memo_hits": int(self.n_memo_hits - self._hits_before),
-            "deferred": 0,
+            "deferred": int(self.n_deferred - self._deferred_before),
             "eval_s": round(eval_s, 4),
             "gen_s": round(time.perf_counter() - self._t_gen, 4),
         }
@@ -492,30 +537,71 @@ class NSGA2:
 
     # -- the pipeline halves (every driver schedules over these) -------------
 
+    def _screen_final(self) -> bool:
+        """Is the pool being planned the search's LAST evaluation?
+
+        The screen trains everything in the final generation so the
+        reported front is built from exact objectives only (the honesty
+        contract in ``core.evalpipe``).
+        """
+        if self.pop is None:  # setup pool: final only for a 0-generation run
+            return self.cfg.n_generations <= 0
+        return self.gen >= self.cfg.n_generations - 1
+
     def plan_pool(
         self,
         masks: np.ndarray,
         cats: np.ndarray,
         claimed: set[bytes] | None = None,
+        force_train: "frozenset[bytes] | None" = None,
     ) -> "evalpipe.PoolPlan":
-        """Plan one pool: the pipeline's first stage.
+        """Plan (+ screen) one pool: the pipeline's first two stages.
 
         The dedupe walk (``evalpipe.plan_rows``) picks the first-seen
         rows that are neither in the memo nor in ``claimed`` — keys
         another island owns this generation because it planned first;
         the claimed set is what preserves the sequential loop's
         guarantee that a child genome born on two islands in the same
-        generation trains exactly once.
+        generation trains exactly once.  The screen stage (when
+        configured) then splits those rows into train-now and deferred,
+        parking the deferred predictions in the shared side table so any
+        pool gathering them later — this island's commit or another
+        island's — answers consistently.
 
         The whole plan runs under the engine's memo lock: a concurrent
         commit from another thread can land before or after this plan,
         but never interleave with the key walk — so a planned-unseen row
         is unseen w.r.t. one consistent memo state.
+
+        ``force_train`` keys (hybrid warm-start rows — exactness is their
+        whole point) are added to the screen's ``must_train`` set, so the
+        honesty contract in ``evalpipe.resolve_decision`` guarantees they
+        are never answered by a surrogate prediction.
         """
         keys = genome_keys(masks, cats)
         with self._memo_lock:
+            unseen = evalpipe.plan_rows(self._memo, keys, claimed)
+            if self._screen is None or not unseen:
+                return evalpipe.PoolPlan(keys=keys, train=unseen)
+            must = frozenset(k for k in unseen if k in self._deferred)
+            if force_train is not None:
+                must = must | frozenset(k for k in unseen if k in force_train)
+            ctx = evalpipe.ScreenContext(
+                masks=masks,
+                cats=cats,
+                keys=keys,
+                unseen=dict(unseen),
+                memo=self._memo,
+                must_train=must,
+                final=self._screen_final(),
+            )
+            decision = evalpipe.resolve_decision(ctx, self._screen(ctx))
+            self._deferred.update(decision.deferred)
             return evalpipe.PoolPlan(
-                keys=keys, train=evalpipe.plan_rows(self._memo, keys, claimed)
+                keys=keys,
+                train=decision.train,
+                deferred={k: unseen[k] for k in decision.deferred},
+                screen_info=decision.telemetry,
             )
 
     def commit_pool(
@@ -526,21 +612,26 @@ class NSGA2:
         ``objs`` rows correspond 1:1 (in order) to ``plan.train`` keys;
         it may be ``None`` when the plan had nothing to train.  Counter
         semantics are identical to the sequential ``_evaluate``: rows
-        this island owns and trains count as evaluations, everything
-        else in the pool — memo entries and keys claimed by earlier
-        islands — as memo hits.
+        this island owns and trains count as evaluations, rows its
+        screen deferred count as ``n_deferred``, everything else in the
+        pool — memo entries, keys claimed by earlier islands, and other
+        pools' deferred rows — as memo hits.
 
         Memo writes, counter updates, and the full-pool gather all
-        happen under the memo lock, so commits racing from two threads
-        each settle atomically.
+        happen under the memo lock, so commits racing from two request
+        threads each settle atomically (no lost counter increments, no
+        partially-written batch visible to a concurrent plan).
         """
         with self._memo_lock:
-            evalpipe.commit_rows(self._memo, plan.train, objs)
+            evalpipe.commit_rows(self._memo, plan.train, objs, self._deferred)
             self.n_evaluations += len(plan.train)
-            self.n_memo_hits += len(plan.keys) - len(plan.train)
-            return evalpipe.gather_rows(plan.keys, self._memo)
+            self.n_deferred += len(plan.deferred)
+            self.n_memo_hits += (
+                len(plan.keys) - len(plan.train) - len(plan.deferred)
+            )
+            return evalpipe.gather_rows(plan.keys, self._memo, self._deferred)
 
-    # -- the two halves as (keys, unseen) pairs -------------------------------
+    # -- compatibility spellings of the two halves (screen-less) -------------
 
     def plan_unseen(
         self,
@@ -548,7 +639,7 @@ class NSGA2:
         cats: np.ndarray,
         claimed: set[bytes] | None = None,
     ) -> tuple[list[bytes], dict[bytes, int]]:
-        """The plan half as a ``(keys, unseen)`` pair."""
+        """The screen-less plan half as a ``(keys, unseen)`` pair."""
         keys = genome_keys(masks, cats)
         with self._memo_lock:
             unseen = evalpipe.plan_rows(self._memo, keys, claimed)
@@ -560,7 +651,7 @@ class NSGA2:
         unseen: dict[bytes, int],
         objs: np.ndarray | None,
     ) -> np.ndarray:
-        """The commit half (see :meth:`commit_pool`)."""
+        """The screen-less commit half (see :meth:`commit_pool`)."""
         return self.commit_pool(
             evalpipe.PoolPlan(keys=keys, train=dict(unseen)), objs
         )
@@ -725,6 +816,13 @@ class NSGA2:
             }
         if include_memo and self.cfg.memoize:
             arrays["memo_keys"], arrays["memo_objs"] = _pack_memo(self._memo)
+            if self._deferred:
+                # the deferred side table rides with the memo so a cold
+                # restore of a screened search keeps its must-train flags
+                # (absent for screen-less runs: old checkpoints stay valid)
+                arrays["deferred_keys"], arrays["deferred_objs"] = _pack_memo(
+                    self._deferred
+                )
         meta = {
             "initialized": self.pop is not None,
             "gen": int(self.gen),
@@ -748,8 +846,6 @@ class NSGA2:
         dict is mutated in place so island aliases keep seeing it.
         """
         arrays, meta = state["arrays"], state["meta"]
-        if "deferred_keys" in arrays:  # a screened search's side table
-            raise NotImplementedError(NOT_PORTED)
         if meta["initialized"]:
             masks = np.asarray(arrays["masks"], bool)
             if masks.shape[1] != self.n_mask_bits:
@@ -780,20 +876,82 @@ class NSGA2:
                 self._memo.update(
                     _unpack_memo(arrays["memo_keys"], arrays["memo_objs"])
                 )
+            self._deferred.clear()
+            if "deferred_keys" in arrays:
+                self._deferred.update(
+                    _unpack_memo(arrays["deferred_keys"], arrays["deferred_objs"])
+                )
 
-    # -- gradient/GA hybrid hooks (core.hybrid, not ported) -------------------
+    # -- gradient/GA hybrid hooks (core.hybrid) -------------------------------
 
     def seed_warm(self, masks: np.ndarray, cats: np.ndarray) -> int:
-        """Warm-start genomes for generation 0: not ported (raises)."""
-        raise NotImplementedError(NOT_PORTED)
+        """Seed the generation-0 population with warm-start genomes.
 
-    def set_refiner(self, refine, every: int, top_k: int = 4) -> None:
-        """The gradient refinement operator: not ported (raises)."""
-        raise NotImplementedError(NOT_PORTED)
+        Rows ``1..k`` of the setup pool (row 0 stays the conventional-ADC
+        baseline) are replaced by the first ``k = min(len(masks),
+        pop_size - 1)`` genomes; the displaced random rows are still
+        *drawn* by ``_init_population``, so the host RNG stream — and
+        therefore every later variation draw — is bit-for-bit the
+        warm-less run's.  Only legal before setup (warm genomes shape the
+        initial population, nothing else).  Returns ``k``.
+        """
+        if self.pop is not None:
+            raise RuntimeError(
+                "seed_warm() after setup: warm genomes only shape the "
+                "initial population"
+            )
+        masks = np.asarray(masks, bool)
+        cats = np.asarray(cats, np.int64)
+        k = min(masks.shape[0], self.cfg.pop_size - 1)
+        self._warm = (masks[:k].copy(), cats[:k].copy())
+        return k
+
+    def set_refiner(
+        self,
+        refine: Callable[[np.ndarray, np.ndarray], tuple[np.ndarray, np.ndarray]],
+        every: int,
+        top_k: int = 4,
+    ) -> None:
+        """Install the gradient refinement operator.
+
+        Every ``every`` generations, ``refine(masks, cats) -> (masks,
+        cats)`` runs on the ``top_k`` top-crowding front-0 members (the
+        :meth:`emigrants` pick — deterministic, no host RNG) and its
+        outputs join the parent+child pool as extra children.  ``refine``
+        MUST NOT consume host RNG (derive any stochasticity from the
+        genomes themselves) or the bit-for-bit variation stream breaks.
+        ``every <= 0`` disables the operator — the engine is then
+        bit-for-bit the plain loop.
+        """
+        self._refine = refine if every > 0 else None
+        self._refine_every = max(int(every), 0)
+        self._refine_top_k = int(top_k)
 
     def score_pool(self, masks: np.ndarray, cats: np.ndarray) -> np.ndarray:
-        """Exact scoring of out-of-band (hybrid) genomes: not ported (raises)."""
-        raise NotImplementedError(NOT_PORTED)
+        """Exactly score out-of-band genomes through the standard pipeline.
+
+        The entry point for hybrid warm-start rows: the pool flows
+        through the same :meth:`plan_pool` / :meth:`commit_pool` halves
+        as a generation pool — memo keys, insertion order, and counter
+        semantics follow the standard contract, so later generations see
+        these rows as ordinary memo hits — but every unseen row is
+        force-trained past the screen (warm genomes must be exact, never
+        surrogate-predicted).  Returns the full-pool objective matrix.
+        """
+        if not self.cfg.memoize:
+            raise ValueError(
+                "score_pool needs the memo pipeline (its results must be "
+                "memo hits for the upcoming generations); set memoize=True"
+            )
+        masks = np.asarray(masks, bool)
+        cats = np.asarray(cats, np.int64)
+        plan = self.plan_pool(
+            masks, cats, force_train=frozenset(genome_keys(masks, cats))
+        )
+        objs = None
+        if plan.train:
+            objs = self.evaluate(*plan.take(masks, cats))
+        return self.commit_pool(plan, objs)
 
     # -- island-model migration hooks ----------------------------------------
 
@@ -979,7 +1137,7 @@ class IslandNSGA2:
             [np.ndarray, np.ndarray], Callable[[], np.ndarray]
         ]
         | None = None,
-        screen=None,
+        screen: "evalpipe.ScreenStage | None" = None,
     ):
         """``stacked_evaluate`` (used when ``island_cfg.stacked``) receives
         the per-island unseen-genome batches — a list of ``num_islands``
@@ -998,11 +1156,17 @@ class IslandNSGA2:
         dispatch time — same results in the same order, zero overlap
         (analytic tests).
 
-        ``screen`` is not ported: anything but ``None`` raises
-        ``NotImplementedError``.
+        ``screen`` is ONE shared ``core.evalpipe.ScreenStage`` instance
+        plugged into every island's plan half (a surrogate fitted on the
+        shared memo screens for all islands); its deferred side table is
+        aliased across islands exactly like the memo.  Requires
+        ``cfg.memoize``.
         """
-        if screen is not None:
-            raise NotImplementedError(NOT_PORTED)
+        if screen is not None and not cfg.memoize:
+            raise ValueError(
+                "a screen stage needs the shared memo pipeline; set "
+                "NSGA2Config.memoize=True"
+            )
         if island_cfg.stacked and not cfg.memoize:
             raise ValueError(
                 "stacked island evaluation needs the shared memo for its "
@@ -1020,6 +1184,11 @@ class IslandNSGA2:
         # halves serialise on it, so the aliased dict stays coherent even
         # when an outer driver steps islands from several threads
         self._memo_lock = threading.RLock()
+        # ONE deferred side table next to the ONE memo: an island
+        # gathering a key another island's screen deferred this wave
+        # answers from here (counts as a memo hit — it cost no training)
+        self._deferred: dict[bytes, np.ndarray] = {}
+        self._screen = screen
         self.islands: list[NSGA2] = []
         K = island_cfg.num_islands
         lo, hi = cfg.init_density
@@ -1045,6 +1214,8 @@ class IslandNSGA2:
             if cfg.memoize:
                 isl._memo = self._memo  # alias, not copy: one global cache
                 isl._memo_lock = self._memo_lock  # aliased dict, shared lock
+                isl._deferred = self._deferred  # one side table, like the memo
+                isl._screen = screen  # one shared screen stage (may be None)
             self.islands.append(isl)
         self.migrations: list[dict] = []
         # aggregated per-generation telemetry — instance state (not a
@@ -1115,6 +1286,10 @@ class IslandNSGA2:
             metas.append(st["meta"])
         if include_memo and self.cfg.memoize:
             arrays["memo_keys"], arrays["memo_objs"] = _pack_memo(self._memo)
+            if self._deferred:
+                arrays["deferred_keys"], arrays["deferred_objs"] = _pack_memo(
+                    self._deferred
+                )
         meta = {
             "islands": metas,
             "migrations": [dict(m) for m in self.migrations],
@@ -1130,8 +1305,6 @@ class IslandNSGA2:
         every island's alias stays live.
         """
         arrays, meta = state["arrays"], state["meta"]
-        if "deferred_keys" in arrays:  # a screened search's side table
-            raise NotImplementedError(NOT_PORTED)
         metas = meta["islands"]
         if len(metas) != len(self.islands):
             raise ValueError(
@@ -1150,6 +1323,11 @@ class IslandNSGA2:
             if "memo_keys" in arrays:
                 self._memo.update(
                     _unpack_memo(arrays["memo_keys"], arrays["memo_objs"])
+                )
+            self._deferred.clear()
+            if "deferred_keys" in arrays:
+                self._deferred.update(
+                    _unpack_memo(arrays["deferred_keys"], arrays["deferred_objs"])
                 )
 
     # -- migration -----------------------------------------------------------

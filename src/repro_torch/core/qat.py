@@ -27,6 +27,11 @@ from repro_torch.kernels.fused_qat import fused_qat_first_layer
 __all__ = [
     "quantize_pow2",
     "quantize_uniform",
+    "quantize_ternary",
+    "quantize_layer_weights",
+    "clip01",
+    "act_approx",
+    "ACT_APPROX_FNS",
     "MLPConfig",
     "init_mlp",
     "dense",
@@ -43,6 +48,22 @@ def _ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 def _as_f32(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=like.device)
+
+
+# 0-dim CPU constants: a binary op takes them as scalars on any device, so
+# a clip launches no fill kernel (and copies nothing under a CUDA graph)
+_ZERO = torch.tensor(0.0)
+_ONE = torch.tensor(1.0)
+
+
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """``x`` clipped to [0, 1] with ``jnp.clip``'s gradient.
+
+    ``minimum(maximum(x, 0), 1)``: at a tie (x exactly 0 or 1) the gradient
+    splits, so the rail passes half of it, as ``jax.grad`` of ``jnp.clip``
+    does; ``torch.clamp`` would pass all of it.
+    """
+    return torch.minimum(torch.maximum(x, _ZERO), _ONE)
 
 
 def quantize_pow2(w: torch.Tensor, bits) -> torch.Tensor:
@@ -71,6 +92,89 @@ def quantize_uniform(x: torch.Tensor, bits, signed: bool = False) -> torch.Tenso
     lo = -scale if signed else torch.zeros_like(scale)
     q = torch.minimum(torch.maximum(torch.round(x * scale), lo), scale) / scale
     return _ste(x, q)
+
+
+def quantize_ternary(w: torch.Tensor) -> torch.Tensor:
+    """Printed ternary weights {-s, 0, +s} of each row, STE gradient (arXiv 2508.19660).
+
+    ``w`` is (P, ...): every row is its own tensor.  A weight is live when
+    ``|w| > 0.7 * mean|w|`` and takes the row's ``s = mean |w|`` over the
+    live weights, as the reference's per-tensor rule.  The row's sums run
+    in ``fixed_sum``'s order, and the mean is ``sum * fp32(1/n)`` as XLA
+    computes ``jnp.mean``.
+    """
+    P = w.shape[0]
+    mag = torch.abs(w)
+    flat = mag.reshape(P, -1)
+    shape = (P,) + (1,) * (w.ndim - 1)
+    thr = 0.7 * (fixed_sum(flat, 1) * (1.0 / flat.shape[1]))
+    live = mag > thr.view(shape)
+    count = fixed_sum(live.reshape(P, -1).to(w.dtype), 1)  # integer-valued: exact
+    total = fixed_sum(torch.where(live, mag, 0.0).reshape(P, -1), 1)
+    scale = total / torch.clamp(count, min=1.0)
+    q = torch.where(live, torch.sign(w) * scale.view(shape), 0.0)
+    return _ste(w, q)
+
+
+def quantize_layer_weights(w: torch.Tensor, bits) -> torch.Tensor:
+    """Per-row weight lowering keyed by a float bit width (the "wprec" genes).
+
+    ``w`` is (P, ...) and ``bits`` (P,): ``bits > 0`` selects the po2
+    quantizer at that width, ``bits == 0`` the ternary sentinel
+    (``chromosome.TERNARY_BITS``).  Both run and each row selects, as the
+    reference's branchless select under ``vmap``, so a population with
+    mixed widths stays one set of launches.
+    """
+    bits = _rows(bits, w, w.ndim)
+    po2 = quantize_pow2(w, torch.clamp(bits, min=1.0))
+    return torch.where(bits > 0.0, po2, quantize_ternary(w))
+
+
+# --- printed activation approximations (arXiv 2312.17612) ---------------
+#
+# Cheap printed-circuit stand-ins for ReLU before the [0, 1] clip and the
+# act_bits re-digitisation.  Order matches chromosome.ACT_APPROX_CHOICES;
+# index 0 is the exact baseline.
+
+
+def _act_relu(h: torch.Tensor) -> torch.Tensor:
+    return torch.relu(h)
+
+
+def _act_sat01(h: torch.Tensor) -> torch.Tensor:
+    # single printed source-follower stage: hard saturation at the rail
+    return clip01(h)
+
+
+def _act_pwl2(h: torch.Tensor) -> torch.Tensor:
+    # two-segment compressive PWL: slope 1 on [0, 0.5], slope 0.5 above
+    return torch.relu(h) - 0.5 * torch.relu(h - 0.5)
+
+
+def _act_step(h: torch.Tensor) -> torch.Tensor:
+    # binary comparator at the mid-rail; STE with sat01's gradient
+    return _ste(_act_sat01(h), (h > 0.5).to(h.dtype))
+
+
+ACT_APPROX_FNS = (_act_relu, _act_sat01, _act_pwl2, _act_step)
+
+
+def act_approx(h: torch.Tensor, sel) -> torch.Tensor:
+    """Each row's activation approximation, selected by its index in ``sel``.
+
+    ``h`` is (P, ...) and ``sel`` (P,) integer indices into
+    :data:`ACT_APPROX_FNS`.  Every branch runs on the whole tensor and each
+    row takes its own, as ``lax.switch`` under ``vmap`` computes (an index
+    out of range clamps to the nearest branch, as ``lax.switch`` does), so
+    the selected values are the branch's bits and the step stays one set
+    of launches whatever the selectors.
+    """
+    sel = torch.as_tensor(sel, device=h.device)
+    sel = torch.clamp(sel, 0, len(ACT_APPROX_FNS) - 1).reshape((-1,) + (1,) * (h.ndim - 1))
+    out = ACT_APPROX_FNS[-1](h)
+    for k in range(len(ACT_APPROX_FNS) - 2, -1, -1):
+        out = torch.where(sel == k, ACT_APPROX_FNS[k](h), out)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +248,8 @@ def mlp_forward(
     masks: torch.Tensor,
     weight_bits=None,
     act_bits=None,
+    act_sel: torch.Tensor | None = None,
+    layer_weight_bits: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Quantized forward pass of a population on the pruned-ADC path.
 
@@ -151,23 +257,36 @@ def mlp_forward(
       x:     (P, B, C) analog inputs.
       masks: (P, C, 2^adc_bits) pruned-ADC keep-masks.
       weight_bits, act_bits: per-row (P,) precisions (default: cfg's).
+      act_sel: (P, n_hidden) int indices into :data:`ACT_APPROX_FNS`, one
+        a hidden layer (genome axis "act"); None is relu.
+      layer_weight_bits: (P, n_layers) fp32 widths through
+        :func:`quantize_layer_weights` (0.0 = ternary, axis "wprec"); they
+        replace ``weight_bits`` in every layer, the first one included.
     Returns: (P, B, n_classes) logits.
 
     The first layer is the fused comparator bank + matmul
     (``kernels.fused_qat``: the kernels on the card, their plain version on
-    the CPU); hidden layers apply relu -> clip to [0, 1] ->
-    ``quantize_uniform(act_bits)``, as ``repro.core.qat.mlp_forward``.
+    the CPU) on the quantized first-layer weight; hidden layers apply the
+    activation -> clip to [0, 1] -> ``quantize_uniform(act_bits)``, as
+    ``repro.core.qat.mlp_forward``.
     """
     wb = _rows(cfg.weight_bits if weight_bits is None else weight_bits, x, 3)
     ab = _rows(cfg.act_bits if act_bits is None else act_bits, x, 3)
     n_layers = len(cfg.layer_sizes) - 1
 
-    def hidden_act(h):
-        return quantize_uniform(torch.clamp(torch.relu(h), 0.0, 1.0), ab)
+    def layer_w(i):
+        if layer_weight_bits is None:
+            return quantize_pow2(params[f"w{i}"], wb)
+        return quantize_layer_weights(params[f"w{i}"], layer_weight_bits[:, i])
 
-    h = fused_qat_first_layer(x, masks, quantize_pow2(params["w0"], wb), params["b0"], cfg.adc_bits)
+    def hidden_act(h, i):
+        h = torch.relu(h) if act_sel is None else act_approx(h, act_sel[:, i])
+        # printed hidden activations are re-digitised at act_bits
+        return quantize_uniform(clip01(h), ab)
+
+    h = fused_qat_first_layer(x, masks, layer_w(0), params["b0"], cfg.adc_bits)
     for i in range(1, n_layers):
-        h = dense(hidden_act(h), quantize_pow2(params[f"w{i}"], wb), params[f"b{i}"])
+        h = dense(hidden_act(h, i - 1), layer_w(i), params[f"b{i}"])
     return h
 
 

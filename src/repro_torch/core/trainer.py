@@ -12,17 +12,19 @@ leading population axis P and run in blocks of ``EvalConfig.block_steps``
   ``min(max(ep * ceil(n / bs) * step_scale, 1), max_steps)`` is spent
   (its momentum velocity keeps updating, as in the reference);
 * precisions and learning rate enter the quantizers and the optimiser as
-  per-row values.
+  per-row values, and so do the genome axes' activation selectors and
+  per-layer weight widths (``EvalConfig.genome_axes``).
 
 **Static buffers and the CUDA graph.**  A call pads P up to the next
 multiple of ``pad_granule`` (the bucket) by repeating its last row, as the
 reference does, and drops the padded rows' results.  Each bucket owns one
 set of static buffers: parameters and momentum velocity, masks and bit
-widths, the loss weights, and one block's minibatch indices, learning
-rates and update gates, which are copied in on the stream before each
-block.  A block is the same code on every device (:func:`_train_block`).
-On the card it is captured once per (bucket, block length) with
-``torch.cuda.graph`` and replayed ``max_steps / S`` times, plus a tail
+widths (and the genome axes' selectors and widths), the loss weights, and
+one block's minibatch indices, learning rates and update gates, which are
+copied in on the stream before each block.  A block is the same code on
+every device (:func:`_train_block`).  On the card it is captured once
+per (bucket, block length) with ``torch.cuda.graph`` and replayed
+``max_steps / S`` times, plus a tail
 graph when S does not divide ``max_steps``; graphs are cached per
 evaluator in one private memory pool.  Nothing in a block reads a value
 back to the host, so a call enqueues its whole training and evaluation
@@ -54,7 +56,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.core import qat
+from repro_torch.core import chromosome, qat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qat import ops as qat_ops
 
@@ -85,6 +87,18 @@ class EvalConfig:
     # costs about 3 + S eager steps, so the smallest (PERF.md;
     # ``chip_smoke.py --step-ab`` times the candidates)
     block_steps: int = 10
+    # generalized-genome gene groups (core.chromosome.AXES).  Beyond "adc",
+    # each enabled axis adds one per-row array to every call, in canonical
+    # order: "act" -> (n_hidden,) int activation selectors, "wprec" ->
+    # (n_layers,) fp32 per-layer weight widths (0.0 = ternary).  The
+    # default runs the ADC-only step: the same launches on the same buffers.
+    genome_axes: tuple[str, ...] = ("adc",)
+
+
+def _extra_names(cfg: EvalConfig) -> tuple[str, ...]:
+    """The slots of the extra per-row arrays ``cfg.genome_axes`` adds, canonical order."""
+    axes = chromosome.normalize_axes(cfg.genome_axes)
+    return tuple(n for ax, n in (("act", "act_sel"), ("wprec", "wprec")) if ax in axes)
 
 
 def draw_rows(seeds, cfg: EvalConfig, mlp_cfg: qat.MLPConfig, n_train: int):
@@ -153,6 +167,12 @@ class _Slots:
         self.masks = torch.zeros((n, sizes[0], 1 << mlp_cfg.adc_bits), dtype=torch.bool,
                                  device=dev)
         self.wb, self.ab, self.denom = (torch.zeros(n, **f32) for _ in range(3))
+        # the genome axes' rows (None when the axis is off: the ADC-only step)
+        n_layers = len(sizes) - 1
+        names = _extra_names(cfg)
+        self.act_sel = (torch.zeros((n, n_layers - 1), dtype=torch.int64, device=dev)
+                        if "act_sel" in names else None)
+        self.wprec = torch.zeros((n, n_layers), **f32) if "wprec" in names else None
         self.w = torch.zeros((n, cfg.max_batch), **f32)
         S = min(cfg.block_steps, cfg.max_steps)
         self.idx = torch.zeros((n, S, cfg.max_batch), dtype=torch.int64, device=dev)
@@ -170,7 +190,8 @@ def _train_block(X_tr, y_tr, mlp_cfg: qat.MLPConfig, momentum: float, s: _Slots,
     params = list(s.params.values())
     for j in range(n_steps):
         it = s.idx[:, j]
-        logits = qat.mlp_forward(s.params, X_tr[it], mlp_cfg, s.masks, s.wb, s.ab)
+        logits = qat.mlp_forward(s.params, X_tr[it], mlp_cfg, s.masks, s.wb, s.ab,
+                                 act_sel=s.act_sel, layer_weight_bits=s.wprec)
         # each row's loss: sum(w * ce) / max(sum(w), 1); rows add up
         # independently, so one backward gives every row its own gradient
         loss = ((s.w * qat.cross_entropy(logits, y_tr[it])) / s.denom[:, None]).sum()
@@ -247,14 +268,19 @@ class _Program:
         full, tail = divmod(self.cfg.max_steps, S)
         return [S] * full + ([tail] if tail else [])
 
-    def launch(self, masks, wb, ab, bs, ep, lr, params0, idx):
+    def launch(self, masks, wb, ab, bs, ep, lr, params0, idx, extra=()):
         """Enqueue the training and evaluation of P rows; returns ``(acc, slots, P)``.
 
-        ``acc`` is the (bucket,) accuracy on the device and ``slots`` the
-        bucket's buffers, holding the trained parameters until the next call
-        on that bucket.  Nothing is read back to the host.
+        ``extra`` holds the genome axes' per-row arrays (``EvalConfig.genome_axes``,
+        canonical order).  ``acc`` is the (bucket,) accuracy on the device and
+        ``slots`` the bucket's buffers, holding the trained parameters until
+        the next call on that bucket.  Nothing is read back to the host.
         """
         cfg = self.cfg
+        names = _extra_names(cfg)
+        if len(extra) != len(names):
+            raise TypeError(f"genome axes {tuple(cfg.genome_axes)} expect {len(names)} "
+                            f"extra row arrays, got {len(extra)}")
         masks = _host(masks, torch.bool)
         P = masks.shape[0]
         if P < 1:
@@ -270,6 +296,8 @@ class _Program:
             # integer-valued: exact in any order
             "w": w_h, "denom": torch.clamp(w_h.sum(-1), min=1.0),
         }
+        for name, v in zip(names, extra):
+            rows[name] = _host(v, torch.int64 if name == "act_sel" else torch.float32)
         idx = _host(idx, torch.int64)
         if idx.shape[1:] != (cfg.max_steps, cfg.max_batch):
             raise ValueError(f"idx is {tuple(idx.shape)}, expected (P, {cfg.max_steps}, "
@@ -316,7 +344,8 @@ class _Program:
             t0 += m
         with torch.no_grad():
             logits = qat.mlp_forward(s.params, self.X_te.expand(n, -1, -1), self.mlp_cfg,
-                                     s.masks, s.wb, s.ab)
+                                     s.masks, s.wb, s.ab, act_sel=s.act_sel,
+                                     layer_weight_bits=s.wprec)
             acc = qat.accuracy(logits, self.y_te.expand(n, -1))
         return acc, s, P
 
@@ -332,13 +361,15 @@ def _use_graph(dev: torch.device, graph: bool | None) -> bool:
 
 def make_row_program(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig, cfg: EvalConfig,
                      device=None, graph: bool | None = None):
-    """Returns ``train_rows(masks, wb, ab, bs, ep, lr, params0, idx) -> (acc, params)``.
+    """Returns ``train_rows(masks, wb, ab, bs, ep, lr, params0, idx, *extra) -> (acc, params)``.
 
     ``acc`` is the (P,) fp32 test-set accuracy of each row after its QAT
     run, ``params`` the final stacked parameters.  Per-row inputs are
     leading-axis stacked arrays or tensors: masks (P, C, 2^N) bool, wb/ab
     (P,) fp32 bit widths, bs/ep (P,) int, lr (P,) fp32; ``params0`` and
-    ``idx`` come from :func:`draw_rows` (or from the reference, in tests).
+    ``idx`` come from :func:`draw_rows` (or from the reference, in tests);
+    ``extra`` the genome axes' arrays (``EvalConfig.genome_axes``: act
+    selectors (P, n_hidden), then wprec widths (P, n_layers)).
     ``graph``: None = a CUDA graph on the card, the plain loop on the CPU.
     The returned function carries ``.stats`` (calls, captures, warm-up
     steps, replays).
@@ -346,8 +377,8 @@ def make_row_program(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig, cfg: EvalCo
     dev = resolve_device(device)
     prog = _Program(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, dev, _use_graph(dev, graph))
 
-    def train_rows(masks, wb, ab, bs, ep, lr, params0, idx):
-        acc, s, P = prog.launch(masks, wb, ab, bs, ep, lr, params0, idx)
+    def train_rows(masks, wb, ab, bs, ep, lr, params0, idx, *extra):
+        acc, s, P = prog.launch(masks, wb, ab, bs, ep, lr, params0, idx, extra)
         return acc[:P], {k: v.detach()[:P].clone() for k, v in s.params.items()}
 
     train_rows.stats = prog.stats
@@ -362,11 +393,13 @@ def device_count(dev: torch.device) -> int:
 def make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
                               cfg: EvalConfig = EvalConfig(), device=None,
                               graph: bool | None = None, n_devices: int | None = None):
-    """Returns ``evaluate(masks, wb, ab, bs, ep, lr, seeds) -> np.ndarray (P,)``.
+    """Returns ``evaluate(masks, wb, ab, bs, ep, lr, seeds, *extra) -> np.ndarray (P,)``.
 
     The test-set accuracy of each row after QAT, a pure function of the
     row (its training seed arrives as an input, derived upstream from the
-    genome bytes), whatever rows share the call.  ``evaluate.dispatch(...)``
+    genome bytes), whatever rows share the call.  ``extra`` holds one
+    array per genome axis beyond "adc" (``cfg.genome_axes``, canonical
+    order), as in the reference.  ``evaluate.dispatch(...)``
     enqueues the same call and returns ``resolve()``, which waits for it;
     ``evaluate.rebuild(n_devices)`` gives a fresh evaluator (an empty graph
     cache) on the first ``n_devices`` devices.  The port trains on one
@@ -378,9 +411,9 @@ def make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
                          "device(s) are available")
     prog = _Program(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, dev, _use_graph(dev, graph))
 
-    def dispatch(masks, wb, ab, bs, ep, lr, seeds):
+    def dispatch(masks, wb, ab, bs, ep, lr, seeds, *extra):
         params0, idx = draw_rows(seeds, cfg, mlp_cfg, prog.n_train)
-        acc, _, P = prog.launch(masks, wb, ab, bs, ep, lr, params0, idx)
+        acc, _, P = prog.launch(masks, wb, ab, bs, ep, lr, params0, idx, extra)
         if dev.type == "cpu":
             out = acc[:P].numpy()
             return lambda: out
@@ -395,8 +428,8 @@ def make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
 
         return resolve
 
-    def evaluate(masks, wb, ab, bs, ep, lr, seeds) -> np.ndarray:
-        return dispatch(masks, wb, ab, bs, ep, lr, seeds)()
+    def evaluate(*rows) -> np.ndarray:
+        return dispatch(*rows)()
 
     def rebuild(n_devices: int | None = None):
         """A fresh evaluator on the same data and config (empty graph cache)."""
@@ -414,8 +447,9 @@ def make_island_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
                           graph: bool | None = None, n_devices: int | None = None):
     """Returns ``evaluate(batches) -> [(B_i,) accuracies, ...]`` for the stacked island driver.
 
-    ``batches`` is one ``(masks, wb, ab, bs, ep, lr, seeds)`` tuple per
-    island (``num_islands`` of them, zero-row batches allowed).  Each
+    ``batches`` is one ``(masks, wb, ab, bs, ep, lr, seeds, *extra)``
+    tuple per island (``num_islands`` of them, zero-row batches allowed;
+    ``extra`` per ``cfg.genome_axes`` as in the population evaluator).  Each
     island is padded to ONE common bucket (the largest island rounded up
     to ``pad_granule``) by repeating its last row, an empty island by a
     filler row from the first non-empty one, as the reference's

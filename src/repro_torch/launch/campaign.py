@@ -12,10 +12,9 @@ those answered from the genome memo, and per-dataset wall-clock.
     PYTHONPATH=src python -m repro_torch.launch.campaign --islands 4 --stacked-islands
     PYTHONPATH=src python -m repro_torch.launch.campaign --islands 4 --async-pipeline
     PYTHONPATH=src python -m repro_torch.launch.campaign --memo-dir DIR   # reruns train nothing
+    PYTHONPATH=src python -m repro_torch.launch.campaign --genome-axes adc,act,wprec \
+        --surrogate --hybrid-warm-frac 0.25   # three-axis genome, screened, warm-started
     PYTHONPATH=src python -m repro_torch.launch.campaign   # full budget, all six
-
-``--genome-axes`` beyond ``adc`` (ROADMAP Queue 1 item 6), ``--surrogate``
-and the ``--hybrid-*`` flags (item 7) raise ``NotImplementedError``.
 """
 
 import argparse
@@ -85,23 +84,45 @@ def main():
         "--device", default=None, metavar="DEV",
         help="cuda (default: the card) or cpu (the plain PyTorch path)",
     )
-    # the reference's flags whose modules are not ported yet: accepted by
-    # the parser and validate(), then refused by check_ported() below
     ap.add_argument(
         "--genome-axes", default="adc", metavar="AXES",
-        help="genome gene groups, from: " + ",".join(chromosome.AXES)
-             + " (beyond 'adc' not ported yet: ROADMAP Queue 1 item 6)",
+        help="comma-separated genome gene groups to evolve, from: "
+             + ",".join(chromosome.AXES)
+             + " ('adc' = the paper's level masks, mandatory; 'act' adds "
+             "per-layer activation approximations, 'wprec' per-layer "
+             "weight precision / ternary weights)",
     )
-    ap.add_argument("--surrogate", action="store_true",
-                    help="surrogate pre-screening (not ported yet: ROADMAP Queue 1 item 7)")
-    ap.add_argument("--surrogate-min-rows", type=int, default=32, metavar="N",
-                    help="the surrogate's confidence gate (with --surrogate)")
-    ap.add_argument("--hybrid-warm-frac", type=float, default=0.0, metavar="F",
-                    help="gradient/GA hybrid warm start (not ported yet: item 7)")
-    ap.add_argument("--hybrid-refine-every", type=int, default=0, metavar="R",
-                    help="gradient/GA hybrid refinement (not ported yet: item 7)")
-    ap.add_argument("--hybrid-grad-steps", type=int, default=30, metavar="T",
-                    help="relaxed-descent steps of the hybrid")
+    ap.add_argument(
+        "--surrogate", action="store_true",
+        help="memo-trained surrogate pre-screening (core.surrogate): spend "
+             "QAT rows only on each generation's predicted-undominated "
+             "genomes + a seeded exploration slice; the rest are deferred "
+             "with flagged predictions and trained when next planned "
+             "(needs the evaluation memo)",
+    )
+    ap.add_argument(
+        "--surrogate-min-rows", type=int, default=32, metavar="N",
+        help="train everything exactly until the memo holds N rows "
+             "(the surrogate's confidence gate)",
+    )
+    ap.add_argument(
+        "--hybrid-warm-frac", type=float, default=0.0, metavar="F",
+        help="gradient/GA hybrid: seed this fraction of each island's "
+             "initial population from relaxed gradient descents, hardened "
+             "and exactly re-scored through the QAT evaluator "
+             "(0 = pure GA; needs the evaluation memo)",
+    )
+    ap.add_argument(
+        "--hybrid-refine-every", type=int, default=0, metavar="R",
+        help="gradient/GA hybrid: every R generations gradient-polish the "
+             "top crowding-distance front-0 members and inject the "
+             "hardened results as extra children (0 = off)",
+    )
+    ap.add_argument(
+        "--hybrid-grad-steps", type=int, default=30, metavar="T",
+        help="relaxed-descent steps per hybrid warm-start restart / "
+             "refinement wave",
+    )
     args = ap.parse_args()
 
     datasets = tuple(d.strip() for d in args.datasets.split(",") if d.strip())
@@ -134,8 +155,6 @@ def main():
         cfg.validate()
     except ValueError as e:
         ap.error(str(e))
-    # a valid option the port lacks raises, naming its ROADMAP item
-    cfg.codesign_config(datasets[0]).check_ported()
 
     res = campaign.run_campaign(cfg)
     print(res.table)

@@ -5,8 +5,8 @@ evaluators replaced, which also routes round the reference's sharding
 fault under JAX 0.9.0) ``run_campaign`` of the two packages gives the same
 gains, table, fronts and counters, times aside; a rerun over the same
 ``memo_dir`` trains zero rows.  ``validate()`` rejects exactly what the
-reference rejects, and the options the port lacks raise
-``NotImplementedError`` naming their ROADMAP item.
+reference rejects; the genome axes, the surrogate and the hybrid run, and
+only the service backend raises ``NotImplementedError`` (ROADMAP item 8).
 
 On the port's real trainer, on the CPU: training in blocks of S steps
 through static buffers is bit-equal to the per-step loop, a bucket-padded
@@ -28,7 +28,7 @@ from _torch_shared import assert_same_codesign, patch_evaluators  # noqa: E402
 from repro.core import campaign as jcampaign  # noqa: E402
 from repro.core import codesign as jcodesign  # noqa: E402
 from repro.data import uci_synth  # noqa: E402
-from repro_torch.core import campaign, codesign, qat, trainer  # noqa: E402
+from repro_torch.core import campaign, chromosome, codesign, qat, trainer  # noqa: E402
 from repro_torch.launch import campaign as cli  # noqa: E402
 
 
@@ -96,18 +96,31 @@ def test_campaign_validation_and_fingerprints():
         assert fp == jcodesign.CodesignConfig(**kw).search_fingerprint()
 
 
+TINY = dict(dataset="seeds", pop_size=4, n_generations=1, max_steps=8, step_scale=0.1,
+            hybrid_grad_steps=3, device="cpu")
+
+
 @pytest.mark.parametrize("overrides,item", [
     (dict(genome_axes="adc,act"), "item 6"), (dict(surrogate=True), "item 7"),
     (dict(hybrid_warm_frac=0.25), "item 7"), (dict(hybrid_refine_every=3), "item 7"),
 ])
 def test_unported_options_raise(overrides, item):
-    cfg = codesign.CodesignConfig(**overrides, device="cpu")
-    assert cfg.validate() is cfg
-    with pytest.raises(NotImplementedError, match=item):
-        codesign.run_codesign(cfg)
-    with pytest.raises(NotImplementedError, match=item):
-        campaign.run_campaign(campaign.CampaignConfig(datasets=("seeds",), device="cpu",
-                                                      **overrides))
+    """The options of ROADMAP Queue 1 items 6 and 7, once refused, now run.
+
+    ``check_ported`` passes them, ``run_codesign`` and ``run_campaign``
+    train with them, and ``NOT_PORTED`` names only item 8 (the service).
+    """
+    assert list(codesign.NOT_PORTED) == ["service"] and item not in str(codesign.NOT_PORTED)
+    cfg = codesign.CodesignConfig(**TINY, **overrides)
+    assert cfg.validate().check_ported() is cfg
+    res = codesign.run_codesign(cfg)
+    assert res.genome_axes == cfg.axes()
+    assert res.front_cats.shape[1] == len(chromosome.cat_cardinalities(cfg.axes(), 2))
+    assert res.front_acc.size >= 1 and np.isfinite(res.front_acc).all()
+    kw = {k: v for k, v in TINY.items() if k != "dataset"}
+    camp = campaign.run_campaign(campaign.CampaignConfig(datasets=("seeds",), **kw,
+                                                         **overrides))
+    np.testing.assert_array_equal(camp.results["seeds"].front_cats, res.front_cats)
 
 
 def test_service_backend_raises():
@@ -115,14 +128,32 @@ def test_service_backend_raises():
         codesign.make_service_backend(codesign.CodesignConfig(device="cpu"))
 
 
+class _Stop(Exception):
+    pass
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--genome-axes", "adc,wprec"], "item 6"), (["--surrogate"], "item 7"),
     (["--hybrid-warm-frac", "0.5"], "item 7"), (["--hybrid-refine-every", "2"], "item 7"),
 ])
 def test_cli_unported_flags_raise(monkeypatch, flags, item):
+    """The CLI flags of items 6 and 7, once refused, reach ``run_campaign`` as configured."""
+    seen = []
+
+    def run_campaign(cfg):
+        seen.append(cfg)
+        raise _Stop
+
+    monkeypatch.setattr(cli.campaign, "run_campaign", run_campaign)
     monkeypatch.setattr(sys, "argv", ["campaign", "--quick", "--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(_Stop):
         cli.main()
+    cfg = seen[0].codesign_config("seeds")
+    assert cfg.check_ported() is cfg and cfg.device == "cpu"
+    name, value = flags[0].lstrip("-").replace("-", "_"), (flags[1:] or [True])[0]
+    got = getattr(cfg, name)
+    assert (cfg.axes() == ("adc", "wprec") if name == "genome_axes"
+            else got == type(got)(value)), (name, got)
 
 
 def test_cli_rejects_what_validate_rejects(monkeypatch):

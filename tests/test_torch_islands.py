@@ -194,14 +194,39 @@ def test_island_config_validation_equals_reference():
 
 
 def test_unported_engine_hooks_raise():
-    ga = nsga2.NSGA2(20, (3, 2), _objective)
-    for call in (lambda: ga.seed_warm(np.zeros((1, 20), bool), np.zeros((1, 2), np.int64)),
-                 lambda: ga.set_refiner(lambda m, c: (m, c), every=2),
-                 lambda: ga.score_pool(np.zeros((1, 20), bool), np.zeros((1, 2), np.int64)),
-                 lambda: nsga2.NSGA2(20, (3, 2), _objective, screen=object()),
-                 lambda: nsga2.IslandNSGA2(20, (3, 2), _objective, screen=object())):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    """The hybrid hooks and the screen stage, once refused, now run as the reference's.
+
+    Nothing of the engine raises ``NotImplementedError`` any more: a warm
+    start, a refiner and out-of-band scoring on both packages' engines give
+    the same memo, counters, histories and front.
+    """
+    assert not hasattr(nsga2, "NOT_PORTED")
+    rng = np.random.default_rng(5)
+    warm_m, warm_c = rng.uniform(size=(3, 20)) < 0.5, rng.integers(0, 2, (3, 2))
+    cfg = nsga2.NSGA2Config(pop_size=8, n_generations=3, seed=2)
+
+    def refine(m, c):  # a pure function of the genomes: flips each member's first bit
+        m = m.copy()
+        m[:, 0] = ~m[:, 0]
+        return m, c
+
+    out = []
+    for mod in (nsga2, jnsga2):
+        ga = mod.NSGA2(20, (3, 2), _objective, dataclasses.replace(cfg))
+        objs = ga.score_pool(warm_m, warm_c)
+        assert ga.seed_warm(warm_m, warm_c) == 3
+        ga.set_refiner(refine, every=2, top_k=2)
+        res = ga.run()
+        out.append((objs, ga.memo, ga.n_evaluations, ga.n_memo_hits, res))
+    (objs, memo, n_ev, n_hit, res), (jobjs, jmemo, jn_ev, jn_hit, jres) = out
+    np.testing.assert_array_equal(objs, jobjs)
+    assert_same_memo(memo, jmemo)
+    assert (n_ev, n_hit) == (jn_ev, jn_hit)
+    assert untimed(res["history"]) == untimed(jres["history"])
+    for k in ("masks", "cats", "objs"):
+        np.testing.assert_array_equal(res[k], jres[k])
+    for ctor in (nsga2.NSGA2, nsga2.IslandNSGA2):
+        assert ctor(20, (3, 2), _objective, screen=lambda ctx: None) is not None
 
 
 CODESIGN = dict(dataset="seeds", pop_size=6, n_generations=4, max_steps=20, step_scale=0.1,
