@@ -4,6 +4,7 @@
     python3 chip_smoke.py             # build, check every kernel, run every slice
     python3 chip_smoke.py --profile   # also profile 20 training steps, a graphed call
                                       # ADC-only and with the genome axes, a refine call,
+                                      # a wave of the evaluation service,
                                       # and decode steps and a prefill (or encode) of
                                       # each served model (gzipped traces to OUT)
     python3 chip_smoke.py --step-ab   # build, phase 4, then the population step and a
@@ -11,6 +12,13 @@
                                       # CUDA graph in turns (the graph at block lengths
                                       # S_CANDIDATES), profiles of both, and a capture
                                       # made to fail; no result lines
+    python3 chip_smoke.py --service   # build, then phase 6d only (the evaluation
+                                      # service; with --profile, its wave profiled),
+                                      # and stop: no result lines
+    python3 chip_smoke.py --encode-order
+                                      # build, then phase 14 twice, phase 6d, phase 14
+                                      # three times: does the service phase slow a
+                                      # later encode in one process; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
     python3 chip_smoke.py --decode-ab DIR
@@ -82,6 +90,18 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 rows, a deterministic refiner, exact K2/K3 launch counts; a
                 generation and a graphed step against ADC-only in the same
                 process, the surrogate's refits, the warm start and refines.
+6d. service     the co-design evaluation service on cardio at full width (pop 24,
+                600 steps, 4-slot waves on the graphed island evaluator, 3
+                generations a request): 4 requests at once (every second one a
+                duplicate), each equal to its solo run on a fresh backend; the
+                duplicates train no row; the largest wave alone gives the same
+                objectives (timed against the wave in service; profiled with
+                ``--profile``); the memo reloaded from disk trains 0 rows; the
+                first capture of a fresh backend held open while two surrogate
+                requests start and fit their screens on the card (no capture
+                error, screen forwards during the capture, each equal to its
+                solo run); a lost wave fails its request only; exact K2/K3
+                launches with replays, each bucket captured once.
 7. attn_kernels K4 (flash attention) and K5 (flash-decode) against their plain
                 versions in bf16 and fp32, at yi-9b's prefill and decode shapes
                 and at the edge shapes of the CPU sweep; times by CUDA events
@@ -1015,6 +1035,383 @@ def phase_genome_slice(torch):
     shutil.rmtree(tmp, ignore_errors=True)
     if not all(checks.values()):
         raise SystemExit(f"genome_slice checks failed: {checks}")
+    return launches
+
+
+# the service phase: ROADMAP Queue 1 item 8 on cardio at full width
+SERVICE_SLOTS = 4  # request batches a device wave carries
+SERVICE_REQUESTS = 4  # the workload, all at once, every second request a duplicate
+SERVICE_DUPLICATE_EVERY = 2
+SERVICE_GENERATIONS = 3  # a request's generations (the config's 16, cut)
+SERVICE_COALESCE_S = 0.02
+SERVICE_SURROGATE = dict(surrogate=True, surrogate_min_rows=16)  # GENOME_SLICE's cut
+SERVICE_SURROGATE_SEEDS = (5, 6)
+HOLD_FORWARDS = 5  # screen forwards the held capture waits for
+HOLD_TIMEOUT_S = 120.0
+
+
+class _ServiceWatch:
+    """While installed: every graph capture's window and error, the surrogate fits in
+    flight, and the screen's forward calls made while a capture was open.  Armed
+    (``hold``), the next capture holds its body open until HOLD_FORWARDS screen
+    forwards have run on another thread, then records the capture as held."""
+
+    def __init__(self, torch):
+        import threading
+
+        from repro_torch.core import surrogate, trainer
+
+        self.torch, self.surrogate, self.trainer = torch, surrogate, trainer
+        self.cond = threading.Condition()
+        self.capture_open = threading.Event()
+        self.in_capture = False
+        self.hold = False
+        self.held = None
+        self.captures: list[dict] = []
+        self.fits: list[tuple[float, float]] = []
+        self.forwards_in_capture = 0
+
+    def __enter__(self):
+        torch, trainer, surrogate = self.torch, self.trainer, self.surrogate
+        self.orig = (trainer._Block.__init__, trainer._train_block,
+                     surrogate.SurrogateScreen._fit, surrogate._forward)
+        block_init, train_block, fit, forward = self.orig
+        watch = self
+
+        def init(blk, run, n, pool):
+            t0, err = time.perf_counter(), None
+            try:
+                block_init(blk, run, n, pool)
+            except BaseException as e:
+                err = f"{type(e).__name__}: {e}"[:300]
+                raise
+            finally:
+                watch.captures.append({"t0": t0, "t1": time.perf_counter(), "error": err})
+
+        def train(*a, **kw):
+            if not torch.cuda.is_current_stream_capturing():
+                return train_block(*a, **kw)
+            with watch.cond:
+                watch.in_capture = True
+            try:
+                if watch.hold:
+                    watch.hold = False
+                    watch.capture_open.set()
+                    with watch.cond:
+                        watch.held = watch.cond.wait_for(
+                            lambda: watch.forwards_in_capture >= HOLD_FORWARDS,
+                            HOLD_TIMEOUT_S)
+                return train_block(*a, **kw)
+            finally:
+                with watch.cond:
+                    watch.in_capture = False
+
+        def fit_w(scr, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fit(scr, *a, **kw)
+            finally:
+                watch.fits.append((t0, time.perf_counter()))
+
+        def fwd(*a, **kw):
+            with watch.cond:
+                if watch.in_capture:
+                    watch.forwards_in_capture += 1
+                    watch.cond.notify_all()
+            return forward(*a, **kw)
+
+        trainer._Block.__init__, trainer._train_block = init, train
+        surrogate.SurrogateScreen._fit, surrogate._forward = fit_w, fwd
+        return self
+
+    def __exit__(self, *exc):
+        (self.trainer._Block.__init__, self.trainer._train_block,
+         self.surrogate.SurrogateScreen._fit, self.surrogate._forward) = self.orig
+
+
+class _Waves:
+    """A backend's ``stacked_evaluate`` that records each call: its batches, output,
+    bucket and wall seconds.  ``fail_next`` makes the next call raise before it
+    reaches the card (a lost wave)."""
+
+    def __init__(self, backend, granule: int):
+        self.backend, self.granule = backend, granule
+        self.calls: list[dict] = []
+        self.fail_next = False
+
+    def __call__(self, batches):
+        from repro_torch.runtime import failure
+
+        if self.fail_next:
+            self.fail_next = False
+            raise failure.DeviceLossError("injected: the wave was lost")
+        t0 = time.perf_counter()
+        out = self.backend["stacked_evaluate"](batches)
+        sizes = [int(m.shape[0]) for m, _ in batches]
+        self.calls.append({"batches": batches, "out": out, "seconds": time.perf_counter() - t0,
+                           "rows": sum(sizes),
+                           "bucket": -(-max(sizes) // self.granule) * self.granule})
+        return out
+
+
+def _witness(res) -> dict:
+    """What a request and its solo run must agree on: front, memo order, counters."""
+    return {"objs": res["objs"], "masks": res["masks"], "cats": res["cats"],
+            "memo_keys": res["memo_keys"], "n_evaluations": res["n_evaluations"],
+            "n_memo_hits": res["n_memo_hits"], "n_deferred": res["n_deferred"]}
+
+
+def _same_witness(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return all(a[k] == b[k] if k == "memo_keys" else np.array_equal(a[k], b[k]) for k in a)
+
+
+def _served(r) -> dict:
+    return _witness({**r.result, "memo_keys": r.memo_keys, "n_evaluations": r.n_evaluations,
+                     "n_memo_hits": r.n_memo_hits, "n_deferred": r.n_deferred})
+
+
+def phase_service(torch, profile: bool = False):
+    """The co-design evaluation service on the card (cardio at full width, pop 24,
+    600 steps, SERVICE_SLOTS-slot waves on K2/K3's graphed island evaluator).
+
+    1. SERVICE_REQUESTS searches at once, every second one a duplicate, each from
+       an empty memo; the shared memo saved to disk.
+    2. Each request alone on a fresh backend from the same memo (a duplicate's
+       solo run is its twin's): the same front, memo order and counters; the
+       duplicates trained no row of their own.
+    3. Each wave of the workload again, alone: the same objectives, its time
+       against the wave's in service (the largest profiled with ``--profile``).
+    4. A second service loads the memo from disk: a request again trains 0 rows.
+    5. On a fresh backend (no bucket captured), the first capture is held open
+       while two surrogate requests (``min_rows`` 16) start and fit their screens
+       on the card from their threads: no capture error, screen forwards ran
+       during the capture, and each request equals its solo run.
+    6. A wave made to fail fails its request only; the next request is answered.
+    K2/K3 launches are exact with replays over the phase, and each backend
+    captured each bucket once."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.printed_mlp import codesign_config
+    from repro_torch.core import codesign, eval_service, memo_store, nsga2, trainer
+    from repro_torch.kernels.fused_qat import ops
+    from repro_torch.launch import codesign_serve
+    from repro_torch.runtime import failure
+
+    tmp = OUT / "service_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+    memo_path = str(tmp / "memo")
+    base = dataclasses.replace(codesign_config("cardio", full=True),
+                               n_generations=SERVICE_GENERATIONS, device="cuda")
+    granule = trainer.EvalConfig().pad_granule
+    svc_cfg = eval_service.ServiceConfig(wave_slots=SERVICE_SLOTS, coalesce_s=SERVICE_COALESCE_S)
+    checks, telemetry = {}, {}
+
+    def service(waves, fingerprint, screen_factory=None, **kw):
+        b = waves.backend
+        return eval_service.EvalService(waves, b["n_mask_bits"], b["cat_cardinalities"],
+                                        cfg=dataclasses.replace(svc_cfg, **kw),
+                                        fingerprint=fingerprint, screen_factory=screen_factory)
+
+    def solo(waves, ga, memo, screen=None) -> tuple[dict, float]:
+        b = waves.backend
+        empty = (np.zeros((0, b["n_mask_bits"]), bool),
+                 np.zeros((0, len(b["cat_cardinalities"])), np.int64))
+
+        def row_evaluate(masks, cats):
+            return waves([(masks, cats)] + [empty] * (SERVICE_SLOTS - 1))[0]
+
+        eng = nsga2.NSGA2(b["n_mask_bits"], b["cat_cardinalities"], row_evaluate, ga,
+                          memo=dict(memo), screen=screen)
+        t0 = time.perf_counter()
+        out = eng.run()
+        return _witness({**out, "memo_keys": list(eng.memo)}), time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with EvaluatorTally() as tally, _ServiceWatch(torch) as watch:
+        # -- 1. the workload
+        waves_a = _Waves(codesign.make_service_backend(base, SERVICE_SLOTS), granule)
+        fp = waves_a.backend["fingerprint"]
+        reqs = codesign_serve.build_requests(SERVICE_REQUESTS, base.pop_size,
+                                             SERVICE_GENERATIONS, base.seed,
+                                             duplicate_every=SERVICE_DUPLICATE_EVERY)
+        for r in reqs:
+            r.memo = {}
+        svc = service(waves_a, fp, memo_path=memo_path)
+        n_captures = len(watch.captures)
+        with svc:
+            t0 = time.perf_counter()
+            results = codesign_serve.serve_workload(svc, reqs)
+            workload_s = time.perf_counter() - t0
+            stats = svc.stats()
+        checks["workload_ok"] = all(r.ok for r in results)
+        if not checks["workload_ok"]:
+            raise SystemExit(f"service: a request failed: {[r.error for r in results]}")
+        served = [_served(r) for r in results]
+        workload_waves = list(waves_a.calls)
+        workload_captures = [c["t1"] - c["t0"] for c in watch.captures[n_captures:]]
+
+        # -- 2. each request alone on a fresh backend; a duplicate's solo run is its
+        # twin's (the same search from the same memo), run and timed once
+        waves_b = _Waves(codesign.make_service_backend(base, SERVICE_SLOTS), granule)
+        solo_s, same, solos = [], [], {}
+        for r, got in zip(reqs, served):
+            if r.ga.seed not in solos:
+                solos[r.ga.seed] = solo(waves_b, r.ga, {})
+            want, s = solos[r.ga.seed]
+            solo_s.append(s)
+            same.append(_same_witness(got, want))
+        sm = stats["shared_memo"]
+        first = {}  # each distinct search's first request
+        for r, w in zip(reqs, served):
+            first.setdefault(r.ga.seed, w)
+        distinct = set().union(*(w["memo_keys"] for w in first.values()))
+        checks["duplicates_train_zero_rows"] = sm["trained"] == sm["entries"] == len(distinct)
+        checks["every_row_accounted"] = (
+            sm["hits"] + sm["coalesced"] + sm["trained"] == sm["rows_requested"])
+
+        # -- 3. each wave of the workload again, alone (its buckets captured)
+        alone_s, alone_same = [], []
+        for w in workload_waves:
+            t0 = time.perf_counter()
+            again = waves_a.backend["stacked_evaluate"](w["batches"])
+            alone_s.append(time.perf_counter() - t0)
+            alone_same.append(all((a is None and b is None) or np.array_equal(a, b)
+                                  for a, b in zip(again, w["out"])))
+        checks["wave_alone_same_bits"] = all(alone_same)
+        big = max(workload_waves, key=lambda c: c["rows"])
+        if profile:
+            telemetry["profile_wave"] = _profiled(
+                torch, lambda: waves_a.backend["stacked_evaluate"](big["batches"]),
+                "profile_service_wave.json")
+
+        # -- 4. the memo reloaded from disk into a second service
+        svc2 = service(waves_a, fp, memo_path=memo_path)
+        reloaded_entries = len(svc2.shared)
+        with svc2:
+            svc2.submit(eval_service.SearchRequest("reload", ga=reqs[0].ga))
+            rerun = svc2.result("reload")
+            stats2 = svc2.stats()
+        checks["reloaded_service_trains_zero_rows"] = (
+            rerun.ok and reloaded_entries == sm["entries"]
+            and stats2["shared_memo"]["trained"] == 0 and rerun.n_evaluations == 0
+            and np.array_equal(rerun.result["objs"], served[0]["objs"]))
+
+        # -- 5. surrogate requests while the first bucket is captured
+        waves_c = _Waves(codesign.make_service_backend(
+            dataclasses.replace(base, **SERVICE_SURROGATE), SERVICE_SLOTS), granule)
+        table = memo_store.load_memo(memo_path, fp)
+        sur_reqs = [eval_service.SearchRequest(
+            f"screened-{s}", ga=nsga2.NSGA2Config(pop_size=base.pop_size,
+                                                   n_generations=SERVICE_GENERATIONS, seed=s),
+            memo=table) for s in SERVICE_SURROGATE_SEEDS]
+        rng = np.random.default_rng(31)
+        trig_m = rng.uniform(size=(base.pop_size, waves_c.backend["n_mask_bits"])) < 0.5
+        trig_c = np.stack([rng.integers(0, c, base.pop_size)
+                           for c in waves_c.backend["cat_cardinalities"]], 1).astype(np.int64)
+        svc3 = service(waves_c, fp, screen_factory=waves_c.backend["screen_factory"])
+        watch.hold = True
+        n_captures_before = len(watch.captures)
+        with svc3:
+            t0 = time.perf_counter()
+            trigger = svc3.scheduler.submit(trig_m, trig_c)
+            if not watch.capture_open.wait(HOLD_TIMEOUT_S):
+                raise SystemExit("service: the first capture never opened")
+            for r in sur_reqs:  # submitted while the capture is open
+                svc3.submit(r)
+            trig_objs = trigger()
+            sur_results = [svc3.result(r.request_id) for r in sur_reqs]
+            surrogate_s = time.perf_counter() - t0
+            stats3 = svc3.stats()
+        fits_in_service = len(watch.fits)  # the rest are the solo runs' fits
+        sur_captures = watch.captures[n_captures_before:]
+        checks["no_capture_error_alongside_surrogate"] = (
+            bool(watch.held) and watch.forwards_in_capture >= HOLD_FORWARDS
+            and all(c["error"] is None for c in watch.captures)
+            and all(r.ok for r in sur_results) and len(sur_captures) >= 1)
+        trig_solo = waves_b([(trig_m, trig_c)] + [
+            (trig_m[:0], trig_c[:0])] * (SERVICE_SLOTS - 1))[0]
+        checks["trigger_rows_same_bits"] = bool(np.array_equal(trig_objs, trig_solo))
+        for r, res in zip(sur_reqs, sur_results):
+            if res.ok:
+                want, s = solo(waves_b, r.ga, table, waves_c.backend["screen_factory"]())
+                same.append(_same_witness(_served(res), want))
+                solo_s.append(s)
+            else:
+                same.append(False)
+        checks["screens_deferred_rows"] = all(r.ok and r.n_deferred > 0 for r in sur_results)
+        checks["each_request_equals_solo"] = all(same) and len(same) == len(reqs) + len(sur_reqs)
+
+        # -- 6. a lost wave
+        svc4 = service(waves_a, fp)
+        with svc4:
+            waves_a.fail_next = True
+            svc4.submit(eval_service.SearchRequest("victim", ga=reqs[-1].ga, memo={}))
+            victim = svc4.result("victim")
+            entries_after_loss = len(svc4.shared)
+            svc4.submit(eval_service.SearchRequest("after", ga=reqs[0].ga, memo={}))
+            after = svc4.result("after")
+            stats4 = svc4.stats()
+        checks["failed_wave_fails_only_its_request"] = (
+            isinstance(victim.error, failure.DeviceLossError) and entries_after_loss == 0
+            and stats4["admission"]["active"] == 0)
+        checks["next_request_answered"] = after.ok and _same_witness(_served(after), served[0])
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_phase
+    launches = dict(ops.LAUNCHES)
+    want_launches = tally.expected_launches(base.max_steps)
+    checks["launch_counts"] = launches == want_launches
+    blocks = -(-base.max_steps // trainer.EvalConfig().block_steps)
+    per_backend = {}
+    for name, waves, st in (("a", waves_a, tally.stats[0]), ("b", waves_b, tally.stats[1]),
+                            ("c", waves_c, tally.stats[2])):
+        buckets = sorted({c["bucket"] for c in waves.calls})
+        per_backend[name] = {"buckets": buckets, "stats": dict(st)}
+        checks[f"buckets_captured_once_{name}"] = (
+            st["captures"] == len(buckets) and st["replays"] == st["calls"] * blocks)
+    checks["buckets_reused"] = tally.total("calls") > tally.total("captures")
+
+    lat = [r.latency_s for r in results]
+    wait = [r.queue_wait_s for r in results]
+    pct = lambda v, q: float(np.percentile(np.asarray(v), q))  # noqa: E731
+    emit("service", dataset="cardio", pop_size=base.pop_size, max_steps=base.max_steps,
+         n_generations=SERVICE_GENERATIONS, wave_slots=SERVICE_SLOTS,
+         n_requests=SERVICE_REQUESTS, duplicate_every=SERVICE_DUPLICATE_EVERY,
+         waves=stats["waves"]["n_waves"], mean_occupancy=stats["waves"]["mean_occupancy"],
+         cross_request_hit_rate=stats["hit_rate"],
+         rows={k: sm[k] for k in ("rows_requested", "trained", "hits", "coalesced", "entries")},
+         latency_p50_s=pct(lat, 50), latency_p95_s=pct(lat, 95),
+         queue_wait_p50_s=pct(wait, 50), queue_wait_p95_s=pct(wait, 95),
+         workload_wall_s=workload_s, solo_wall_s=solo_s[:len(reqs)],
+         solo_sum_s=sum(solo_s[:len(reqs)]),
+         wave_rows=[c["rows"] for c in workload_waves],
+         wave_s=[c["seconds"] for c in workload_waves], wave_alone_s=alone_s,
+         wave_in_service_over_alone=[c["seconds"] / a for c, a in zip(workload_waves, alone_s)],
+         workload_capture_s=workload_captures,
+         capture_s=[c["t1"] - c["t0"] for c in watch.captures],
+         largest_wave={"rows": big["rows"], "bucket": big["bucket"]},
+         reload={"entries": reloaded_entries, "trained": stats2["shared_memo"]["trained"]},
+         surrogate={"requests": len(sur_reqs), "wall_s": surrogate_s,
+                    "n_deferred": [r.n_deferred for r in sur_results],
+                    "n_evaluations": [r.n_evaluations for r in sur_results],
+                    "captures_during": len(sur_captures), "held": watch.held,
+                    "screen_forwards_in_capture": watch.forwards_in_capture,
+                    "fits_in_service": fits_in_service,
+                    "fit_s": [t1 - t0 for t0, t1 in watch.fits],
+                    "waves": stats3["waves"]["n_waves"],
+                    "hit_rate": stats3["hit_rate"]},
+         lost_wave={"victim_error": repr(victim.error)[:200], "after_ok": after.ok},
+         backends=per_backend, phase_s=phase_s, launches=launches,
+         expected_launches=want_launches,
+         **telemetry, checks=checks, ok=all(checks.values()))
+    shutil.rmtree(tmp, ignore_errors=True)
+    if not all(checks.values()):
+        raise SystemExit(f"service checks failed: {checks}")
     return launches
 
 
@@ -2609,6 +3006,14 @@ def main() -> int:
         phase_attn_kernels(torch)
         phase_mm_attn_kernels(torch)
         return 0
+    if "--encode-order" in args:  # whisper's slice before and after the service phase
+        for phase in (phase_audio_slice, phase_audio_slice, phase_service,
+                      phase_audio_slice, phase_audio_slice, phase_audio_slice):
+            phase(torch)
+        return 0
+    if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
+        phase_service(torch, profile=profile)
+        return 0
     if "--step-ab" in args:  # the graph checked against the eager loop, then timed
         phase_placement(torch)
         phase_graph_ab(torch)
@@ -2630,6 +3035,8 @@ def main() -> int:
     for kname, n in phase_campaign(torch).items():
         launches[kname] += n
     for kname, n in phase_genome_slice(torch).items():
+        launches[kname] += n
+    for kname, n in phase_service(torch, profile=profile).items():
         launches[kname] += n
     phase_qat_profiler(torch)
     if profile:

@@ -11,19 +11,56 @@ Masks are boolean ``(..., C, 2^N)`` tensors; ``mask[..., i]`` keeps level
 ``i``.  Level 0 is forced kept.  A leading population axis P on the mask
 (``(P, C, 2^N)``) pairs with inputs of shape ``(P, B, C)``: each row has
 its own bank.
+
+:func:`circuit_simulate` is the gate-level oracle (comparator bank ->
+thermometer code -> level-select ANDs -> OR-tree encoder), in numpy and
+deliberately literal, as in the reference: the tests hold the fast path
+to it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 __all__ = [
+    "ADCSpec",
     "force_level0",
     "levels_to_values",
     "kept_thresholds",
     "quantize_pruned",
     "quantize_pruned_ste",
+    "thermometer_code",
+    "circuit_simulate",
 ]
+
+
+@dataclasses.dataclass(frozen=True)
+class ADCSpec:
+    """Static description of the ADC frontend of one model.
+
+    Attributes:
+      n_bits:     flash-ADC resolution N (levels = 2^N).
+      n_channels: number of analog input channels (one bespoke ADC each).
+      vref:       full-scale reference; inputs are normalised to [0, vref).
+    """
+
+    n_bits: int = 4
+    n_channels: int = 1
+    vref: float = 1.0
+
+    @property
+    def n_levels(self) -> int:
+        return 1 << self.n_bits
+
+    def full_mask(self, device=None) -> torch.Tensor:
+        """The unpruned bank: a (n_channels, 2^N) bool tensor of ones on ``device``."""
+        return torch.ones((self.n_channels, self.n_levels), dtype=torch.bool,
+                          device=resolve_device(device))
 
 
 def force_level0(mask: torch.Tensor) -> torch.Tensor:
@@ -89,3 +126,63 @@ def quantize_pruned_ste(
     """
     v = levels_to_values(quantize_pruned(x, mask, n_bits, vref), n_bits, vref)
     return x + (v - x).detach()
+
+
+# ---------------------------------------------------------------------------
+# Gate-level circuit simulation (tests only; deliberately literal).
+# ---------------------------------------------------------------------------
+
+def thermometer_code(x: np.ndarray, mask: np.ndarray, n_bits: int, vref: float = 1.0) -> np.ndarray:
+    """Comparator-bank outputs of the pruned ADC, one bit per KEPT level >= 1.
+
+    Returns (..., C, 2^N - 1) uint8; pruned comparator positions are 0
+    (their comparator does not exist).
+    """
+    n = 1 << n_bits
+    x = np.clip(np.asarray(x, np.float64), 0.0, vref * (1.0 - 0.5 / n))
+    thr = np.arange(1, n, dtype=np.float64) * (vref / n)
+    fired = (x[..., None] >= thr).astype(np.uint8)
+    keep = np.asarray(mask)[..., 1:].astype(np.uint8)
+    return fired * keep
+
+
+def circuit_simulate(x: np.ndarray, mask: np.ndarray, n_bits: int, vref: float = 1.0) -> np.ndarray:
+    """Bit-exact pruned flash ADC: comparators -> priority encoder -> binary.
+
+    Mirrors Fig. 3(b) of the paper: level-select signal
+    ``s_i = c_i AND NOT c_j`` where ``c_j`` is the next *kept* comparator
+    above ``i`` (for the topmost kept level, ``s_i = c_i``); output bit
+    ``a_b = OR_{kept i with bit b set} s_i``.
+    Returns (..., C) int64 level ids.
+    """
+    n = 1 << n_bits
+    mask = np.asarray(mask).astype(bool).copy()
+    mask[..., 0] = True
+    tc = thermometer_code(x, mask, n_bits, vref)  # (..., C, n-1)
+    batch_shape = tc.shape[:-2] if tc.ndim >= 2 else ()
+    C = mask.shape[0] if mask.ndim == 2 else 1
+    mask2 = mask.reshape(C, n)
+    tc = tc.reshape(batch_shape + (C, n - 1)) if tc.ndim >= 2 else tc
+
+    out = np.zeros(tc.shape[:-1], dtype=np.int64)
+    for c in range(C):
+        kept = [i for i in range(1, n) if mask2[c, i]]
+        # level-select AND gates
+        s = {}
+        for idx, i in enumerate(kept):
+            ci = tc[..., c, i - 1]
+            if idx + 1 < len(kept):
+                cj = tc[..., c, kept[idx + 1] - 1]
+                s[i] = ci & (1 - cj)
+            else:
+                s[i] = ci
+        # OR-tree encoder per output bit
+        bits = np.zeros(tc.shape[:-2] + (n_bits,), dtype=np.uint8)
+        for b in range(n_bits):
+            acc = np.zeros(tc.shape[:-2], dtype=np.uint8)
+            for i in kept:
+                if (i >> b) & 1:
+                    acc = acc | s[i]
+            bits[..., b] = acc
+        out[..., c] = sum((bits[..., b].astype(np.int64) << b) for b in range(n_bits))
+    return out

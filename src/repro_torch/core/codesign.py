@@ -20,12 +20,11 @@ memo (``memoize``) and its store on disk (``memo_path``), GA-state
 checkpoints with resume, and chaos drills (``drill``), the last two
 through ``runtime.elastic.ElasticGARunner``; the surrogate screen
 (``core.surrogate``) and the gradient/GA hybrid (``core.hybrid``) too.
+:func:`make_service_backend` gives the evaluation service
+(``core.eval_service``) the same objective as a stacked wave of requests.
 ``use_fused_kernel`` is accepted either way: the port's first QAT layer
 is always the fused K2/K3 pair, which the reference's own "identical
 search outcome" allows.
-
-Not ported yet (see :data:`NOT_PORTED`): the evaluation-service backend
-(ROADMAP Queue 1 item 8), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ import itertools
 import zlib
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import area as area_model
@@ -47,16 +47,10 @@ from repro_torch.runtime import failure as failure_rt
 __all__ = [
     "CodesignConfig",
     "CodesignResult",
-    "NOT_PORTED",
     "run_codesign",
     "make_service_backend",
     "gains_at_budget",
 ]
-
-NOT_PORTED = {
-    "service": "the evaluation service is not ported yet: ROADMAP Queue 1 item 8",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class CodesignConfig:
@@ -188,14 +182,6 @@ class CodesignConfig:
                 "genomes are exact-scored through the memo pipeline so "
                 "later generations see them as hits)"
             )
-        return self
-
-    def check_ported(self) -> "CodesignConfig":
-        """Every valid configuration runs on the port; returns ``self``.
-
-        Only the evaluation-service backend is not ported, and
-        :func:`make_service_backend` refuses it itself.
-        """
         return self
 
     def make_screen(self, n_mask_bits: int, cat_cardinalities) -> (
@@ -352,19 +338,27 @@ def _make_cost_batch(axes: tuple[str, ...], adc_bits: int, layer_sizes):
     return cost_batch, conv_area + mlp_area, conv_power + mlp_power
 
 
-def run_codesign(cfg: CodesignConfig) -> CodesignResult:
-    cfg.validate()
+def _problem(cfg: CodesignConfig):
+    """What a search of ``cfg`` trains on: ``((X_tr, y_tr, X_te, y_te), spec,
+    mlp_cfg, eval_cfg)``, the dataset's 70/30 split, the MLP, the evaluator config."""
     X, y, spec = uci_synth.load(cfg.dataset)
-    X_tr, y_tr, X_te, y_te = uci_synth.stratified_split(X, y, 0.7, cfg.seed)
+    split = uci_synth.stratified_split(X, y, 0.7, cfg.seed)
     mlp_cfg = qat.MLPConfig(
         layer_sizes=(spec.n_features, spec.hidden, spec.n_classes),
         adc_bits=cfg.adc_bits,
     )
+    eval_cfg = trainer.EvalConfig(
+        max_steps=cfg.max_steps, step_scale=cfg.step_scale, seed=cfg.seed,
+        genome_axes=cfg.axes(),
+    )
+    return split, spec, mlp_cfg, eval_cfg
+
+
+def run_codesign(cfg: CodesignConfig) -> CodesignResult:
+    cfg.validate()
+    (X_tr, y_tr, X_te, y_te), spec, mlp_cfg, eval_cfg = _problem(cfg)
     axes = cfg.axes()
     n_layers = len(mlp_cfg.layer_sizes) - 1
-    eval_cfg = trainer.EvalConfig(
-        max_steps=cfg.max_steps, step_scale=cfg.step_scale, seed=cfg.seed, genome_axes=axes
-    )
     # evaluators live in a mutable dict so the recovery path can swap in
     # rebuilt ones mid-campaign: every callback reads it at call time
     evaluators: dict = {
@@ -577,8 +571,80 @@ def _hybrid_wiring(cfg: CodesignConfig, ga, run_ga, X_tr, y_tr, mlp_cfg, axes):
 
 
 def make_service_backend(cfg: CodesignConfig, wave_slots: int = 4) -> dict:
-    """The evaluation service's wave backend: not ported (raises)."""
-    raise NotImplementedError(NOT_PORTED["service"])
+    """Build the QAT wave backend of ``core.eval_service.EvalService``.
+
+    The service's wave scheduler speaks the island-evaluator contract:
+    ``wave_slots`` per-request ``(masks, cats)`` batches in, one objective
+    array per slot out (``None`` for an empty slot).  So the backend is the
+    stacked-islands objective of :func:`run_codesign` built for a fixed
+    slot count: the same genome decode, the same crc32 genome seeds, the
+    same area pass, the same ``trainer.make_island_evaluator`` on
+    ``cfg.device``.  A genome therefore gets here the objective vector
+    that any campaign of this package with the same
+    :meth:`CodesignConfig.memo_fingerprint` computes, which is what makes
+    the service's shared memo interchangeable with campaign memos on disk.
+
+    Returns a dict with ``stacked_evaluate``, the genome shape
+    (``n_mask_bits``, ``cat_cardinalities``), the memo ``fingerprint``, a
+    ``screen_factory`` (``None`` unless ``cfg.surrogate``: the service
+    builds one fresh surrogate screen a request, as it snapshots the memo
+    a request), and the dataset ``spec`` and ``conv_area`` for reporting.
+    The wave is *dispatched* (``.dispatch``), so the host area pass runs
+    while the card trains.  On the card every wave runs on the backend's
+    own stream: its launches, its copy to pinned memory and the event its
+    ``resolve()`` waits on, apart from the streams of request threads that
+    fit screens meanwhile.  ``stacked_evaluate`` returns only once its
+    wave is read back, so one wave is in flight at a time and the next
+    cannot overwrite a bucket's buffers before that.
+    """
+    cfg.validate()
+    (X_tr, y_tr, X_te, y_te), spec, mlp_cfg, eval_cfg = _problem(cfg)
+    axes = cfg.axes()
+    n_layers = len(mlp_cfg.layer_sizes) - 1
+    dev = resolve_device(cfg.device)
+    island_eval = trainer.make_island_evaluator(
+        X_tr, y_tr, X_te, y_te, mlp_cfg, eval_cfg, num_islands=wave_slots, device=dev,
+    )
+    stream = None
+    if dev.type == "cuda":
+        stream = torch.cuda.Stream(dev)
+        # the evaluator's data was copied to the card on this thread's stream
+        stream.wait_stream(torch.cuda.current_stream(dev))
+    conv_area, _ = area_model.conventional_cost(spec.n_features, cfg.adc_bits)
+    cost_batch, norm_area, _ = _make_cost_batch(axes, cfg.adc_bits, mlp_cfg.layer_sizes)
+
+    def stacked_evaluate(batches):
+        decs = [
+            chromosome.decode_batch(m, c, spec.n_features, cfg.adc_bits, axes=axes,
+                                    n_layers=n_layers)
+            for m, c in batches
+        ]
+        with torch.cuda.stream(stream):  # no-op on the CPU (stream None)
+            resolve_accs = island_eval.dispatch(
+                [_rows(d, _genome_seeds(m, c)) for d, (m, c) in zip(decs, batches)]
+            )
+        # host-side area pass, overlapped with the wave in flight
+        areas = [cost_batch(d)[0] for d in decs]
+        accs = resolve_accs()
+        return [
+            np.stack([1.0 - np.asarray(a), ar / norm_area], axis=1) if len(ar) else None
+            for a, ar in zip(accs, areas)
+        ]
+
+    n_mask_bits = chromosome.n_mask_bits(spec.n_features, cfg.adc_bits)
+    cat_cards = tuple(chromosome.cat_cardinalities(axes, n_layers))
+    screen_factory = (
+        (lambda: cfg.make_screen(n_mask_bits, cat_cards)) if cfg.surrogate else None
+    )
+    return {
+        "stacked_evaluate": stacked_evaluate,
+        "fingerprint": cfg.memo_fingerprint(),
+        "n_mask_bits": n_mask_bits,
+        "cat_cardinalities": cat_cards,
+        "spec": spec,
+        "conv_area": conv_area,
+        "screen_factory": screen_factory,
+    }
 
 
 def _run_elastic(cfg: CodesignConfig, ga, run_ga, rebuild_evaluators):

@@ -31,6 +31,16 @@ back to the host, so a call enqueues its whole training and evaluation
 without waiting: ``evaluate.dispatch`` returns a ``resolve()`` that waits
 on a CUDA event, the counterpart of the reference's asynchronous dispatch.
 
+**Threads.**  A capture runs in ``capture_error_mode="thread_local"``: a
+call that cannot be captured (a host read, a synchronising copy) fails on
+the capturing thread, while other threads may make any CUDA call on their
+own streams meanwhile.  The evaluation service (``core.eval_service``)
+needs this: its request threads fit surrogate screens on the card while
+its scheduler thread captures a new bucket; the mode checks less and
+captures the same launches, so no bit changes.  One thread trains an
+evaluator: the launch counters below are exact only while no other thread
+launches K2/K3 during a capture.
+
 ``graph=None`` means a graph on the card and the plain loop on the CPU;
 ``graph=False`` on the card is an explicit eager run (for A/B timing);
 ``graph=True`` on the CPU raises.  A failed capture or replay raises and
@@ -218,7 +228,9 @@ class _Block:
         before = dict(qat_ops.LAUNCHES)
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            # thread_local: a call that cannot be captured still fails on this
+            # thread; other threads' CUDA calls (a service's screens) go on
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 run(n)
         finally:
             # the wrappers counted during the capture, where nothing launched:

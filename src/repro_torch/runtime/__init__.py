@@ -1,5 +1,12 @@
-"""Fault tolerance of GA campaigns: failure injection, the straggler watchdog, elastic runs."""
+"""Runtime policies: failure injection, the straggler watchdog, elastic runs, and the
+evaluation service's admission control and deadlines."""
 
+from repro_torch.runtime.admission import (  # noqa: F401
+    AdmissionConfig,
+    AdmissionController,
+    AdmissionError,
+    RequestWatchdog,
+)
 from repro_torch.runtime.elastic import DrillConfig, ElasticGARunner  # noqa: F401
 from repro_torch.runtime.failure import FailureInjector  # noqa: F401
 from repro_torch.runtime.straggler import StragglerWatchdog  # noqa: F401

@@ -3,6 +3,8 @@
 Levels are discrete decisions, so every comparison here is exact: the
 same inputs (made from a seed with numpy) must give the same level, the
 same dequantized STE value bit for bit, and the same comparator tables.
+The port's own gate-level oracle (``adc.circuit_simulate``,
+``adc.thermometer_code``) and ``adc.ADCSpec`` equal the reference's.
 """
 
 import itertools
@@ -45,7 +47,7 @@ def test_levels_equal_reference_and_circuit_for_every_mask(n_bits):
         got = adc.quantize_pruned(torch.from_numpy(x), torch.from_numpy(m), n_bits).numpy()
         want = np.asarray(jadc.quantize_pruned(jnp.asarray(x), jnp.asarray(m), n_bits))
         np.testing.assert_array_equal(got, want, err_msg=f"mask={mask.astype(int)}")
-        np.testing.assert_array_equal(got, jadc.circuit_simulate(x, m, n_bits))
+        np.testing.assert_array_equal(got, adc.circuit_simulate(x, m, n_bits))
 
 
 def test_population_masks_match_reference_row_by_row():
@@ -103,3 +105,36 @@ def test_tables_and_helpers_equal_reference(n_bits):
     )
     m0 = adc.force_level0(torch.zeros(2, 1 << n_bits, dtype=torch.bool))
     np.testing.assert_array_equal(m0[:, 0].numpy(), True)
+
+
+@pytest.mark.parametrize("n_bits", [2, 3, 4])
+def test_circuit_oracle_equals_reference_for_every_mask(n_bits):
+    """Every mask over levels 1..2^N-1 as one bank of channels, each channel probed at the
+    grid: the thermometer code and the encoded levels equal the reference's, and
+    the fast path equals the circuit."""
+    masks = _all_masks(n_bits)  # (2^(2^N - 1), 2^N): one channel a mask
+    x = np.repeat(_probe_grid(n_bits)[:, None], masks.shape[0], axis=1)  # (probes, C)
+    np.testing.assert_array_equal(adc.thermometer_code(x, masks, n_bits),
+                                  jadc.thermometer_code(x, masks, n_bits))
+    got = adc.circuit_simulate(x, masks, n_bits)
+    assert got.dtype == np.int64 and got.shape == x.shape
+    np.testing.assert_array_equal(got, jadc.circuit_simulate(x, masks, n_bits))
+    fast = adc.quantize_pruned(torch.from_numpy(x), torch.from_numpy(masks), n_bits).numpy()
+    np.testing.assert_array_equal(fast, got)
+    # a pruned comparator never fires; vref scales the thresholds
+    assert not adc.thermometer_code(x, masks & False, n_bits).any()
+    np.testing.assert_array_equal(adc.circuit_simulate(2 * x, masks, n_bits, vref=2.0), got)
+
+
+@pytest.mark.parametrize("n_bits,n_channels,vref", [(4, 1, 1.0), (3, 21, 1.0), (2, 6, 2.5)])
+def test_adc_spec_equals_reference(n_bits, n_channels, vref):
+    spec, jspec = adc.ADCSpec(n_bits, n_channels, vref), jadc.ADCSpec(n_bits, n_channels, vref)
+    assert (spec.n_bits, spec.n_channels, spec.vref, spec.n_levels) == (
+        jspec.n_bits, jspec.n_channels, jspec.vref, jspec.n_levels)
+    mask = spec.full_mask("cpu")
+    assert mask.dtype == torch.bool and mask.device.type == "cpu"
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jspec.full_mask()))
+    assert adc.ADCSpec() == adc.ADCSpec(4, 1, 1.0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            spec.full_mask()

@@ -6,7 +6,7 @@ fault under JAX 0.9.0) ``run_campaign`` of the two packages gives the same
 gains, table, fronts and counters, times aside; a rerun over the same
 ``memo_dir`` trains zero rows.  ``validate()`` rejects exactly what the
 reference rejects; the genome axes, the surrogate and the hybrid run, and
-only the service backend raises ``NotImplementedError`` (ROADMAP item 8).
+the evaluation service's backend builds on the CPU.
 
 On the port's real trainer, on the CPU: training in blocks of S steps
 through static buffers is bit-equal to the per-step loop, a bucket-padded
@@ -107,12 +107,13 @@ TINY = dict(dataset="seeds", pop_size=4, n_generations=1, max_steps=8, step_scal
 def test_unported_options_raise(overrides, item):
     """The options of ROADMAP Queue 1 items 6 and 7, once refused, now run.
 
-    ``check_ported`` passes them, ``run_codesign`` and ``run_campaign``
-    train with them, and ``NOT_PORTED`` names only item 8 (the service).
+    ``validate`` passes them, ``run_codesign`` and ``run_campaign`` train
+    with them, and nothing of the co-design module is refused any more.
     """
-    assert list(codesign.NOT_PORTED) == ["service"] and item not in str(codesign.NOT_PORTED)
+    assert not hasattr(codesign, "NOT_PORTED") and not hasattr(codesign.CodesignConfig,
+                                                                "check_ported")
     cfg = codesign.CodesignConfig(**TINY, **overrides)
-    assert cfg.validate().check_ported() is cfg
+    assert cfg.validate() is cfg
     res = codesign.run_codesign(cfg)
     assert res.genome_axes == cfg.axes()
     assert res.front_cats.shape[1] == len(chromosome.cat_cardinalities(cfg.axes(), 2))
@@ -124,8 +125,24 @@ def test_unported_options_raise(overrides, item):
 
 
 def test_service_backend_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        codesign.make_service_backend(codesign.CodesignConfig(device="cpu"))
+    """The evaluation service's backend, once refused, builds on the CPU: its keys,
+    its genome shape and its fingerprint (the campaign memo's); ``validate``'s
+    refusals still reach it."""
+    cfg = codesign.CodesignConfig(device="cpu", dataset="seeds", max_steps=8, step_scale=0.1)
+    b = codesign.make_service_backend(cfg, wave_slots=2)
+    assert set(b) == {"stacked_evaluate", "fingerprint", "n_mask_bits", "cat_cardinalities",
+                      "spec", "conv_area", "screen_factory"}
+    assert b["n_mask_bits"] == chromosome.n_mask_bits(7, 4) == 7 * 16
+    assert b["cat_cardinalities"] == tuple(chromosome.cat_cardinalities(("adc",), 2))
+    assert b["fingerprint"] == cfg.memo_fingerprint() and b["fingerprint"]["backend"] == "torch"
+    assert b["screen_factory"] is None and b["spec"].n_features == 7
+    rng = np.random.default_rng(0)
+    masks = rng.uniform(size=(3, b["n_mask_bits"])) < 0.5
+    cats = np.zeros((3, len(b["cat_cardinalities"])), np.int64)
+    objs = b["stacked_evaluate"]([(masks, cats), (masks[:0], cats[:0])])
+    assert objs[0].shape == (3, 2) and objs[1] is None and np.isfinite(objs[0]).all()
+    with pytest.raises(ValueError, match="memoize"):
+        codesign.make_service_backend(dataclasses.replace(cfg, surrogate=True, memoize=False))
 
 
 class _Stop(Exception):
@@ -149,7 +166,7 @@ def test_cli_unported_flags_raise(monkeypatch, flags, item):
     with pytest.raises(_Stop):
         cli.main()
     cfg = seen[0].codesign_config("seeds")
-    assert cfg.check_ported() is cfg and cfg.device == "cpu"
+    assert cfg.validate() is cfg and cfg.device == "cpu"
     name, value = flags[0].lstrip("-").replace("-", "_"), (flags[1:] or [True])[0]
     got = getattr(cfg, name)
     assert (cfg.axes() == ("adc", "wprec") if name == "genome_axes"
