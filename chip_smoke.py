@@ -21,6 +21,9 @@
                                       # later encode in one process; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
+    python3 chip_smoke.py --families  # build, then phases 11b and 15-17 only (the MoE,
+                                      # RWKV-6 and Zamba2 families; with --profile,
+                                      # profiled), and stop: no result lines
     python3 chip_smoke.py --decode-ab DIR
                                       # only the decode-step wall time of the three
                                       # served models, K5 alternately this checkout's
@@ -164,6 +167,38 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 decode steps (K5 48 a step: self and cross), counted in that run
                 alone; then the steps against ``decode_train`` over the same
                 tokens, within 3x its bf16-vs-fp32 floor.
+11b. moe_parity, ssm_parity, hybrid_parity
+                reduced phi3.5-moe and arctic (its dense residual MLP), rwkv6 and
+                zamba2 in fp32, one set of seed-drawn parameters on the card and on
+                the port's CPU path: forward (rwkv6: the recursive chunked form),
+                prefill logits and caches (rwkv6: the explicit form), decode logits
+                and caches within 1e-4; ``serve.run`` tokens and scheduling fields
+                equal on both devices, all at once and staggered (rwkv6's and
+                zamba2's tokens depend on the schedule in both packages, so only
+                card = CPU is held); K4/K5 on their fp32 variants (none for rwkv6).
+                Run after phase 11.
+15. moe_slice   phi3.5-moe at full width in bf16, depth cut from 32 to 24 layers
+                (62.9 GB of weights; 32 would not fit): weights drawn on the card,
+                a 4096-token prefill twice, ``serve.run`` of 4 requests of 32 + 16
+                tokens in 4 slots of 4096 (staggered) and again all at once (the
+                same tokens), K4 24 a prefill and K5 24 a decode step, the share
+                of (token, k) pairs the prefill's capacity dropped, the decode
+                step at B=4, peak memory; then, the 24 layers freed, decode vs
+                prefill on a full-width 2-layer draw with capacity_factor 8
+                (nothing dropped) within 3x its bf16-vs-fp32 floor.
+16. ssm_slice   rwkv6-1.6b at full width and depth: a 4096-token prefill (the
+                explicit chunked form) twice, then ``forward`` (the recursive
+                form) within 3x the prefill's bf16-vs-fp32 floor; ``serve.run``
+                of 4 requests of 64 + 32 tokens; the decode step at B=4; decode vs
+                prefill within 3x its floor; K4 and K5 launched 0 times.
+17. hybrid_slice
+                zamba2-2.7b at full width and depth (54 Mamba2 layers, 6 shared-
+                attention calls): a 4096-token prefill twice, ``serve.run`` as in
+                16, the decode step at B=4, decode vs prefill within 3x its floor,
+                K4 6 a prefill and K5 6 a decode step; K4 and K5 at zamba2's
+                full-length bf16 shapes (d = 80, G = 1) against their plain
+                versions (3e-2), timed.
+Phases 15-17 run after phase 14.
 
 Last, ``capture_fails``: a capture made to read a value back to the host
 raises, caches no graph and falls back to nothing.  The last three lines
@@ -2504,6 +2539,522 @@ def phase_audio_slice(torch, profile: bool = False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the MoE, RWKV-6 and Zamba2 families: reduced parity, then full width
+# ---------------------------------------------------------------------------
+
+PHI = "phi3.5-moe-42b-a6.6b"
+# phi3.5-moe's 32 layers are 83.7 GB of bf16 weights, more than the card's
+# 80 GB; 28 would leave under 8 GiB for caches and activations; 24 take 62.9 GB
+MOE_LAYERS = 24
+# decode vs prefill on a full-width 2-layer draw (after the 24 layers are
+# freed) with capacity_factor 8: C = S at the prefill and 1 a decode step, so
+# neither drops a pair (at the config's 1.25 a 64-token prefill has C = 10)
+MOE_CHECK_LAYERS = 2
+MOE_CHECK_CAPACITY = 8.0
+FAMILY_PARITY = (("moe_parity", (PHI, "arctic-480b")), ("ssm_parity", ("rwkv6-1.6b",)),
+                 ("hybrid_parity", ("zamba2-2.7b",)))
+PARITY_SCHEDULES = {"together": (), "staggered": (0, 1, 3, 5)}
+FULL_PREFILL = 4096  # tokens of the full-width prefill, B = 1
+DECODE_PROMPT = 64   # tokens of the full-width decode-vs-prefill check
+ZAMBA_PREFILL = (1, 4096, 4096, 32, 32, 80, True)  # B, Sq, Sk, Hq, Hkv, d, causal
+ZAMBA_DECODE = (4, 32, 32, 4096, 80)                # B, Hq, Hkv, S, d
+
+
+def _family_module(family: str):
+    from repro_torch.models import hybrid, rwkv6, transformer
+
+    return {"dense": transformer, "moe": transformer, "ssm": rwkv6, "hybrid": hybrid}[family]
+
+
+def phase_family_parity(torch):
+    """Reduced phi3.5-moe, arctic, rwkv6 and zamba2 in fp32: one set of
+    seed-drawn parameters on the card and on the port's CPU path."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, init_cache
+
+    fields = ("requests", "decode_steps", "peak_active", "first_token_step", "finish_step")
+    for phase, archs in FAMILY_PARITY:
+        for arch in archs:
+            started = time.perf_counter()
+            cfg = registry.reduced(registry.get(arch))
+            model, module = build_model(cfg), _family_module(cfg.family)
+            params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
+            params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
+            k4_before, k5_before = dict(fops.LAUNCHES), dops.LAUNCHES["decode_attention"]
+            served_equal, tokens_card = {}, {}
+            for name, arrival in PARITY_SCHEDULES.items():
+                kw = dict(SERVE_PARITY, arch=arch, arrival_steps=arrival)
+                run = {dev: serve.run(serve.ServeConfig(**kw, device=dev), params=params[dev])
+                       for dev in ("cuda", "cpu")}
+                served_equal[name] = all(run["cuda"][f] == run["cpu"][f] for f in fields)
+                tokens_card[name] = run["cuda"]["requests"]
+            B, S = 2, 16
+            toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+            res = {}
+            for dev in ("cuda", "cpu"):
+                p, tok = params[dev], torch.from_numpy(toks).to(dev)
+                with torch.inference_mode():
+                    r = {"forward_logits": module.forward(p, tok, cfg)}
+                    r["prefill_logits"], cache = model.prefill(p, tok)
+                    r.update({f"prefill_{n}": t for n, t in cache.items()})
+                    c = init_cache(model, B, S, dev)
+                    kv, steps = torch.zeros(B, dtype=torch.int32, device=dev), []
+                    for t in range(S):
+                        lg, c = model.decode_step(p, tok[:, t], c, kv)
+                        kv = kv + 1
+                        steps.append(lg)
+                    r["decode_logits"] = torch.stack(steps, 1)
+                    r.update({f"decode_{n}": t for n, t in c.items()})
+                res[dev] = {n: t.float().cpu() for n, t in r.items()}
+            gaps = {n: float((res["cuda"][n] - res["cpu"][n]).abs().max()) for n in res["cpu"]}
+            close = all(torch.allclose(res["cuda"][n], res["cpu"][n], rtol=LM_PARITY_TOL,
+                                       atol=LM_PARITY_TOL) for n in res["cpu"])
+            k5 = dops.LAUNCHES["decode_attention"] - k5_before
+            if cfg.family == "ssm":  # attention-free: neither kernel
+                kernels_ok = k5 == 0 and dict(fops.LAUNCHES) == k4_before
+            else:
+                kernels_ok = k5 > 0 and fp32_variant_only(fops, k4_before)
+            ok = all(served_equal.values()) and close and kernels_ok
+            emit(phase, seconds=time.perf_counter() - started, arch=f"{arch} (reduced, fp32)",
+                 served_equal=served_equal,
+                 tokens_card=tokens_card, max_abs_gap=gaps, tol=LM_PARITY_TOL,
+                 k5_launches=k5, kernels_ok=kernels_ok, ok=ok)
+            if not ok:
+                raise SystemExit(f"the card's reduced {arch} leaves the port's CPU path")
+
+
+def _full_width_main_path(torch, model, module, params, serve_cfg, tokens,
+                          keep_logits: bool = False) -> dict:
+    """A served family's main path at full width, its launches read from this
+    run alone: a prefill of ``tokens`` (B = 1) twice (the first includes
+    cuBLAS's set-up), then ``serve.run``; the last prefill's logits kept
+    when asked."""
+    from repro_torch.launch import serve
+
+    calls = {"prefill": 0, "decode_step": 0}
+    originals = {n: _count_calls(module, n, calls) for n in calls}
+    try:
+        # -- the main path: counts set to 0 just before, read just after
+        read_counts = _reset_all_counts()
+        prefill_ms = []
+        with torch.inference_mode():
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, _ = model.prefill(params, tokens)
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            finite = bool(torch.isfinite(logits).all())
+            if not keep_logits:
+                del logits
+        t0 = time.perf_counter()
+        out = serve.run(serve_cfg, params=params)
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()
+        main_calls = dict(calls)
+    finally:
+        for n, f in originals.items():
+            setattr(module, n, f)
+    return dict(prefill_ms=prefill_ms, prefill_finite=finite, serve_s=serve_s, out=out,
+                launches=launches, calls=main_calls, logits=logits if keep_logits else None)
+
+
+def _expected_launches(attn_per_call: int, calls: dict) -> dict:
+    want = {"pruned_quantize": 0, "flash_attention": attn_per_call * calls["prefill"],
+            "decode_attention": attn_per_call * calls["decode_step"]}
+    want.update(k4_variants(want["flash_attention"]))
+    return want
+
+
+def _decode_step_ms(torch, model, params, tok, n: int = 16):
+    """Wall ms of a decode step at B = 4, 64 positions in (a warm-up step first)."""
+    from repro_torch.models import init_cache
+
+    c = init_cache(model, 4, FULL_PREFILL, "cuda")
+    kv_len = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        model.decode_step(params, tok, c, kv_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            model.decode_step(params, tok, c, kv_len + i)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, c, kv_len + n
+
+
+def _profile_family(torch, phase, tag, model, params, tokens, c, kv_len):
+    tok = tokens[0, :4].contiguous()
+
+    def four_steps():
+        for i in range(4):
+            model.decode_step(params, tok, c, kv_len + i)
+
+    with torch.inference_mode():
+        emit(f"{phase}_profile", what="4 decode steps, B=4",
+             **_profiled(torch, four_steps, f"profile_{tag}_decode.json"))
+        emit(f"{phase}_profile", what=f"prefill of {tokens.shape[1]} tokens, B=1",
+             **_profiled(torch, lambda: model.prefill(params, tokens),
+                         f"profile_{tag}_prefill.json"))
+
+
+def _teacher_forced(torch, model, params, prompt):
+    """Decode over ``prompt`` (1, S) from a zeroed cache: (1, S, V) fp32 logits."""
+    from repro_torch.models import init_cache
+
+    c = init_cache(model, 1, prompt.shape[1], "cuda")
+    kv_len = torch.zeros(1, dtype=torch.int32, device="cuda")
+    dec = []
+    for t in range(prompt.shape[1]):
+        lg, c = model.decode_step(params, prompt[:, t], c, kv_len)
+        kv_len = kv_len + 1
+        dec.append(lg)
+    return torch.stack(dec, 1).float()
+
+
+# fp32 decode vs fp32 prefill of the recurrent families at full width: their
+# bf16 floor is as large as the logits (random weights at full depth amplify
+# rounding: rwkv6's per-head RMS norm of near-zero WKV outputs), so the same
+# check runs in fp32 with a bound on the logits' range: the largest gap at
+# most FP32_DECODE_REL of max |logit| (rwkv6 measured 1.4%, zamba2 0.1%, on
+# an NVIDIA H100 80GB HBM3), and the greedy token equal at FP32_DECODE_ARGMAX
+# of the positions (measured 98.4% and 100%).  A stale state or a wrong
+# position moves the logits by the whole range and the tokens to chance.
+FP32_DECODE_REL = 0.05
+FP32_DECODE_ARGMAX = 0.9
+
+
+def _decode_vs_prefill(torch, model, module, cfg, params, prompt, fp32_check=False) -> dict:
+    """Teacher-forced decode over ``prompt`` (1, S) from a zeroed cache against
+    the prefill's logits, beside the bf16 prefill's distance from an fp32
+    evaluation of the same weights (the floor).  With ``fp32_check`` (rwkv6,
+    zamba2), also the fp32 decode against that fp32 prefill, within
+    FP32_DECODE_REL of its max |logit| and FP32_DECODE_ARGMAX greedy tokens."""
+    import dataclasses
+
+    from repro_torch.models import build_model
+
+    V = cfg.vocab_size
+    with torch.inference_mode():
+        pre, _ = model.prefill(params, prompt)
+        dec = _teacher_forced(torch, model, params, prompt)
+        params32 = {k: v.float() for k, v in params.items()}
+        f32, _ = module.prefill(params32, prompt, cfg)
+        pre = pre.float()
+        extra = {}
+        if fp32_check:
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            dec32 = _teacher_forced(torch, build_model(cfg32), params32, prompt)
+            gap32 = float((dec32 - f32).abs().max())
+            agree32 = float((dec32[..., :V].argmax(-1) == f32[..., :V].argmax(-1)).float().mean())
+            tol32 = FP32_DECODE_REL * float(f32.abs().max())
+            extra = dict(decode_vs_prefill_fp32_max_abs=gap32, decode_fp32_tol=tol32,
+                         argmax_agreement_fp32=agree32,
+                         consistent_fp32=gap32 <= tol32 and agree32 >= FP32_DECODE_ARGMAX)
+        del params32
+    gap = float((dec - pre).abs().max())
+    floor = float((pre - f32).abs().max())
+    return dict(decode_vs_prefill_max_abs=gap, prefill_bf16_vs_fp32_max_abs=floor,
+                fp32_logits_max_abs=float(f32.abs().max()),
+                decode_bf16_vs_fp32_max_abs=float((dec - f32).abs().max()),
+                decode_tol=DECODE_FLOOR_FACTOR * floor,
+                argmax_agreement=float(
+                    (dec[..., :V].argmax(-1) == pre[..., :V].argmax(-1)).float().mean()),
+                consistent=gap <= DECODE_FLOOR_FACTOR * floor, **extra)
+
+
+def _draw(torch, model, seed: int):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    return params, time.perf_counter() - t0, n_bytes
+
+
+def _served_checks(main: dict, serve_cfg, V: int, attn_per_call: int) -> dict:
+    out = main["out"]
+    want = _expected_launches(attn_per_call, main["calls"])
+    return {
+        "prefill_logits_finite": main["prefill_finite"],
+        "every_request_done": len(out["requests"]) == serve_cfg.n_requests and all(
+            len(t) == serve_cfg.gen_len for t in out["requests"].values()),
+        "tokens_in_vocab": all(0 <= x < V for t in out["requests"].values() for x in t),
+        "launch_counts": main["launches"] == want and main["calls"]["prefill"] == 2
+        and main["calls"]["decode_step"] > 0,
+    }
+
+
+def _served_fields(main: dict, serve_cfg, attn_per_call: int) -> dict:
+    import dataclasses
+
+    out, n_dec = main["out"], main["calls"]["decode_step"]
+    return dict(prefill_tokens=FULL_PREFILL, prefill_ms=main["prefill_ms"],
+                serve=dataclasses.asdict(serve_cfg), serve_s=main["serve_s"], decode_calls=n_dec,
+                serve_ms_per_decode_call=main["serve_s"] / n_dec * 1e3,
+                tokens_generated=out["tokens_generated"], tokens_per_s=out["tokens_per_s"],
+                decode_steps=out["decode_steps"], peak_active=out["peak_active"],
+                first_token_step=out["first_token_step"], finish_step=out["finish_step"],
+                calls=main["calls"], launches=main["launches"],
+                expected_launches=_expected_launches(attn_per_call, main["calls"]))
+
+
+def phase_moe_slice(torch, profile: bool = False):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import (
+        build_model,
+        exact_n_active_params,
+        exact_n_params,
+        transformer,
+    )
+
+    started = time.perf_counter()
+    allocated_before = _free_device(torch)
+    cfg = dataclasses.replace(registry.get(PHI), n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s, n_bytes = _draw(torch, model, 0)
+    V = cfg.vocab_size
+    tokens = torch.randint(0, V, (1, FULL_PREFILL), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    serve_cfg = serve.ServeConfig(
+        arch=PHI, reduced=False, n_layers=MOE_LAYERS, max_batch=4, max_len=4096, n_requests=4,
+        prompt_len=32, gen_len=16, arrival_steps=(0, 4, 8, 12), device="cuda")
+    main = _full_width_main_path(torch, model, transformer, params, serve_cfg, tokens)
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- the share of (token, k) pairs the prefill's capacity dropped (a third,
+    # untimed prefill, its routes read)
+    dropped, route = [], transformer._moe_route
+
+    def routed(h, lp, c):
+        res = route(h, lp, c)
+        dropped.append((~res[3]).sum())
+        return res
+
+    transformer._moe_route = routed
+    try:
+        with torch.inference_mode():
+            model.prefill(params, tokens)
+    finally:
+        transformer._moe_route = route
+    C = max(int(cfg.capacity_factor * FULL_PREFILL * cfg.top_k / cfg.n_experts), 1)
+    pairs = cfg.n_layers * FULL_PREFILL * cfg.top_k
+    per_layer = (torch.stack(dropped).float() / (FULL_PREFILL * cfg.top_k)).tolist()
+    drop_share = sum(per_layer) / cfg.n_layers
+
+    step_ms, c, kv_len = _decode_step_ms(torch, model, params, tokens[0, :4].contiguous())
+    if profile:
+        _profile_family(torch, "moe", "phi35moe", model, params, tokens, c, kv_len)
+    del c
+    # -- scheduling independence: the same requests all at once
+    again = serve.run(dataclasses.replace(serve_cfg, arrival_steps=()), params=params)
+    same_tokens = again["requests"] == main["out"]["requests"]
+    del params
+    # -- decode vs prefill on a full-width 2-layer draw, nothing dropped
+    _free_device(torch)
+    cut = dataclasses.replace(registry.get(PHI), n_layers=MOE_CHECK_LAYERS,
+                              capacity_factor=MOE_CHECK_CAPACITY)
+    m2 = build_model(cut)
+    p2, _, _ = _draw(torch, m2, 2)
+    dvp = _decode_vs_prefill(torch, m2, transformer, cut, p2, tokens[:, :DECODE_PROMPT])
+    del p2
+
+    # reckonings from the shapes: a decode step computes every expert (E*C =
+    # 16 slots a row) so it reads every layer weight; the prefill's expert GEMMs
+    d, f, E = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    layer_bytes = n_bytes - 2 * cfg.padded_vocab * d * 2
+    expert_flops = 2 * 3 * E * C * d * f * cfg.n_layers
+    checks = _served_checks(main, serve_cfg, V, cfg.n_layers)
+    checks.update(decode_matches_prefill=dvp.pop("consistent"), scheduling_independent=same_tokens)
+    emit("moe_slice", seconds=time.perf_counter() - started, arch=PHI, dtype=cfg.dtype,
+         n_layers=cfg.n_layers,
+         n_layers_published=registry.get(PHI).n_layers, d_model=d, n_experts=E,
+         top_k=cfg.top_k, expert_d_ff=f, capacity_factor=cfg.capacity_factor,
+         n_params=exact_n_params(cfg),
+         n_active_params=exact_n_active_params(cfg), param_bytes=n_bytes,
+         allocated_before_bytes=allocated_before, init_s=init_s, peak_memory_bytes=peak,
+         prefill_capacity=C, prefill_pairs=pairs, prefill_dropped_share=drop_share,
+         prefill_dropped_share_by_layer=per_layer,
+         decode_step_ms_b4=step_ms,
+         reckoning={"layer_weight_bytes": layer_bytes,
+                    "decode_step_bound_ms": layer_bytes / HBM_BYTES_PER_S * 1e3,
+                    "prefill_expert_flops": expert_flops,
+                    "prefill_expert_bound_ms": expert_flops / BF16_FLOPS * 1e3},
+         **_served_fields(main, serve_cfg, cfg.n_layers),
+         decode_check_layers=MOE_CHECK_LAYERS, decode_check_capacity_factor=MOE_CHECK_CAPACITY,
+         **dvp, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"moe_slice checks failed: {checks}")
+    return main["launches"]
+
+
+def phase_ssm_slice(torch, profile: bool = False):
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, exact_n_params, rwkv6
+
+    started = time.perf_counter()
+    allocated_before = _free_device(torch)
+    cfg = registry.get("rwkv6-1.6b")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s, n_bytes = _draw(torch, model, 0)
+    V = cfg.vocab_size
+    tokens = torch.randint(0, V, (1, FULL_PREFILL), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    serve_cfg = serve.ServeConfig(arch=cfg.name, reduced=False, max_batch=4, max_len=4096,
+                                  n_requests=4, prompt_len=64, gen_len=32, device="cuda")
+    main = _full_width_main_path(torch, model, rwkv6, params, serve_cfg, tokens,
+                                 keep_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- the two chunked forms at 4096 tokens: forward (recursive) against
+    # the main path's prefill (explicit), within the factor of the prefill's
+    # bf16-vs-fp32 floor
+    pre = main.pop("logits")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd = rwkv6.forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        forms_gap = float((fwd.float() - pre.float()).abs().max())
+        del fwd
+        params32 = {k: v.float() for k, v in params.items()}
+        pre32, _ = rwkv6.prefill(params32, tokens, cfg)
+        forms_floor = float((pre.float() - pre32).abs().max())
+        fwd32 = rwkv6.forward(params32, tokens, cfg)
+        forms_gap_fp32 = float((fwd32 - pre32).abs().max())
+        del pre, pre32, fwd32, params32
+
+    step_ms, c, kv_len = _decode_step_ms(torch, model, params, tokens[0, :4].contiguous())
+    if profile:
+        _profile_family(torch, "ssm", "rwkv6", model, params, tokens, c, kv_len)
+    del c
+    dvp = _decode_vs_prefill(torch, model, rwkv6, cfg, params, tokens[:, :DECODE_PROMPT],
+                             fp32_check=True)
+    del params
+    checks = _served_checks(main, serve_cfg, V, 0)
+    checks.update(forward_matches_prefill=forms_gap <= DECODE_FLOOR_FACTOR * forms_floor,
+                  decode_matches_prefill=dvp.pop("consistent"),
+                  decode_matches_prefill_fp32=dvp.pop("consistent_fp32"))
+    emit("ssm_slice", seconds=time.perf_counter() - started, arch=cfg.name, dtype=cfg.dtype,
+         n_layers=cfg.n_layers, d_model=cfg.d_model,
+         ssm_chunk=cfg.ssm_chunk, n_params=exact_n_params(cfg), param_bytes=n_bytes,
+         allocated_before_bytes=allocated_before, init_s=init_s, peak_memory_bytes=peak,
+         forward_ms=forward_ms, forward_vs_prefill_max_abs=forms_gap,
+         forward_vs_prefill_tol=DECODE_FLOOR_FACTOR * forms_floor,
+         forward_vs_prefill_fp32_max_abs=forms_gap_fp32, decode_step_ms_b4=step_ms,
+         **_served_fields(main, serve_cfg, 0), **dvp, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"ssm_slice checks failed: {checks}")
+    return main["launches"]
+
+
+def _zamba_kernels(torch) -> dict:
+    """K4 and K5 in bf16 at zamba2's full-length shapes (d = 80, G = 1)
+    against their plain versions, timed by CUDA events beside plain, SDPA
+    and the bound (K5 by events, not the profiler: after the profiled
+    phases a session loses too many records at this size)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn import ref as dref
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.kernels.flash_attn import ref as fref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    B, Sq, Sk, Hq, Hkv, d, causal = ZAMBA_PREFILL
+    q, k, v = rn(B, Sq, Hq, d), rn(B, Sk, Hkv, d), rn(B, Sk, Hkv, d)
+    err, ok = _close(torch, fops.flash_attention(q, k, v, causal),
+                     fref.flash_attention_ref(q, k, v, causal), "bfloat16")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bms, by = flash_bound(torch, *ZAMBA_PREFILL, bf)
+    res = {"flash_attention": dict(
+        shape=list(ZAMBA_PREFILL), variant=fops.variant(bf, d), max_abs_err=err,
+        tol=ATTN_TOL["bfloat16"], ok=ok,
+        ms=device_ms(torch, lambda: fops.flash_attention(q, k, v, causal), 3, 3),
+        plain_ms=device_ms(torch, lambda: fref.flash_attention_ref(q, k, v, causal), 3, 3),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), 10, 3),
+        bound_ms=bms, bound_by=by)}
+    B, Hq, Hkv, S, d = ZAMBA_DECODE
+    q, k, v = rn(B, Hq, d), rn(B, S, Hkv, d), rn(B, S, Hkv, d)
+    kv_len = torch.randint(1, S + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    kv_len[0], kv_len[1] = S, 1
+    err, ok = _close(torch, dops.decode_attention(q, k, v, kv_len),
+                     dref.decode_attention_ref(q, k, v, kv_len), "bfloat16")
+    mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
+    q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    bms, by = decode_bound(torch, *ZAMBA_DECODE, kv_len, bf)
+    res["decode_attention"] = dict(
+        shape=list(ZAMBA_DECODE), kv_len=kv_len.tolist(),
+        n_split=dops.split_plan(B, Hkv, S)[0], max_abs_err=err, tol=ATTN_TOL["bfloat16"], ok=ok,
+        ms=device_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len)),
+        plain_ms=device_ms(torch, lambda: dref.decode_attention_ref(q, k, v, kv_len)),
+        library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, kt, vt, attn_mask=mask)),
+        bound_ms=bms, bound_by=by)
+    return res
+
+
+def phase_hybrid_slice(torch, profile: bool = False):
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, exact_n_params, hybrid
+
+    started = time.perf_counter()
+    allocated_before = _free_device(torch)
+    cfg = registry.get("zamba2-2.7b")
+    model = build_model(cfg)
+    n_super = hybrid._n_super(cfg)[0]
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s, n_bytes = _draw(torch, model, 0)
+    V = cfg.vocab_size
+    tokens = torch.randint(0, V, (1, FULL_PREFILL), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    serve_cfg = serve.ServeConfig(arch=cfg.name, reduced=False, max_batch=4, max_len=4096,
+                                  n_requests=4, prompt_len=64, gen_len=32, device="cuda")
+    main = _full_width_main_path(torch, model, hybrid, params, serve_cfg, tokens)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms, c, kv_len = _decode_step_ms(torch, model, params, tokens[0, :4].contiguous())
+    if profile:
+        _profile_family(torch, "hybrid", "zamba2", model, params, tokens, c, kv_len)
+    del c
+    dvp = _decode_vs_prefill(torch, model, hybrid, cfg, params, tokens[:, :DECODE_PROMPT],
+                             fp32_check=True)
+    del params
+    kernels = _zamba_kernels(torch)
+    checks = _served_checks(main, serve_cfg, V, n_super)
+    checks.update(decode_matches_prefill=dvp.pop("consistent"),
+                  decode_matches_prefill_fp32=dvp.pop("consistent_fp32"),
+                  kernels_at_zamba2_shapes=all(r["ok"] for r in kernels.values()))
+    emit("hybrid_slice", seconds=time.perf_counter() - started, arch=cfg.name, dtype=cfg.dtype,
+         n_layers=cfg.n_layers,
+         shared_attention_calls=n_super, d_model=cfg.d_model, n_params=exact_n_params(cfg),
+         param_bytes=n_bytes, allocated_before_bytes=allocated_before, init_s=init_s,
+         peak_memory_bytes=peak, decode_step_ms_b4=step_ms,
+         **_served_fields(main, serve_cfg, n_super), **dvp, kernels_at_zamba2_shapes=kernels,
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"hybrid_slice checks failed: {checks}")
+    return main["launches"]
+
+
 def build_all(torch) -> None:
     """Build every kernel library at once: one nvcc per source, in parallel;
     then print what ptxas reported for each kernel (registers, static shared
@@ -3011,6 +3562,11 @@ def main() -> int:
                       phase_audio_slice, phase_audio_slice, phase_audio_slice):
             phase(torch)
         return 0
+    if "--families" in args:  # the MoE, RWKV-6 and Zamba2 phases alone: build, run, stop
+        phase_family_parity(torch)
+        for path in (phase_moe_slice, phase_ssm_slice, phase_hybrid_slice):
+            path(torch, profile=profile)
+        return 0
     if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
         phase_service(torch, profile=profile)
         return 0
@@ -3048,8 +3604,10 @@ def main() -> int:
     phase_mm_attn_kernels(torch)
     phase_vlm_parity(torch)
     phase_audio_parity(torch)
+    phase_family_parity(torch)
     # each serving path's launches, read from its own run, summed over the paths
-    for path in (phase_lm_slice, phase_vlm_slice, phase_audio_slice):
+    for path in (phase_lm_slice, phase_vlm_slice, phase_audio_slice, phase_moe_slice,
+                 phase_ssm_slice, phase_hybrid_slice):
         for kname, n in path(torch, profile=profile).items():
             launches[kname] = launches.get(kname, 0) + n
 

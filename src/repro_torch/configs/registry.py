@@ -43,8 +43,10 @@ def get(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family config for CPU smoke tests (full configs are only
-    exercised shape-wise via the dry-run)."""
+    """Tiny same-family config for the CPU tests (the reference's cut, field
+    for field).  Every family builds at full width too: ``chip_smoke.py``
+    serves yi-9b, phi3.5-moe (depth cut), rwkv6, zamba2, internvl2 and
+    whisper on the card."""
     over: dict = dict(
         n_layers=2,
         d_model=64,

@@ -39,7 +39,8 @@ def lm_params_from_jax(params: dict[str, np.ndarray], cfg, device=None) -> dict[
     """A model's parameter dict (numpy) -> the port's tensors in ``cfg.dtype``.
 
     The names and shapes must be those of the family's ``param_specs``
-    (``models.transformer`` for dense and VLM, ``models.whisper`` for audio).
+    (``models.transformer`` for dense, MoE and VLM, ``models.rwkv6`` for
+    ssm, ``models.hybrid`` for hybrid, ``models.whisper`` for audio).
     Arrays may arrive in fp32 (a bf16 -> fp32 -> bf16 round trip is exact).
     """
     dev = resolve_device(device)

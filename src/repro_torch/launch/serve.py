@@ -8,14 +8,29 @@ batching).  The scheduling, the greedy argmax over ``[:vocab_size]`` and the
 returned fields are the reference's, line for line.
 
 The cache comes from the model's ``cache_specs(max_batch, max_len)``, as
-in the reference: (L, B, max_len) KV caches for the dense and VLM families;
-for whisper, self caches of ``max_target_len`` and zeroed cross caches of
-``max_len`` positions (the reference serves whisper's decoder alone).  On a
-CUDA device every ``decode_step`` runs the decode attention as the
-hand-written flash-decode kernel K5, once per layer (twice for whisper:
-self and cross).  Everything runs under ``torch.inference_mode()``.
+in the reference: (L, B, max_len) KV caches for the dense, MoE and VLM
+families; the fp32 wkv states and token-shift buffers for rwkv6 (no
+``max_len``); the SSM and conv states and one KV cache per shared-attention
+invocation for zamba2; for whisper, self caches of ``max_target_len`` and
+zeroed cross caches of ``max_len`` positions (the reference serves
+whisper's decoder alone).  On a CUDA device every ``decode_step`` runs the
+decode attention as the hand-written flash-decode kernel K5: once per layer
+(dense, MoE, VLM), twice per layer for whisper (self and cross), once per
+shared-attention invocation for zamba2, never for rwkv6.  Everything runs
+under ``torch.inference_mode()``.
+
+The reference's caveat, kept: ``feed_slot`` pushes each prompt token
+through ``decode_step`` over the whole batch.  For the KV-cache families
+that is harmless (another slot's extra write lands at a position the next
+step writes again with the same values).  For rwkv6 and zamba2 it advances
+every other slot's recurrent state (wkv state, token shifts, conv and SSD
+states) by its pending token again, and a reused slot starts from the
+previous request's state: their tokens depend on the schedule, in both
+packages alike.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b          # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b     # any LM arch
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b-a6.6b --full --layers 24
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu          # plain path
 """
 
@@ -50,6 +65,9 @@ class ServeConfig:
     # with 0 = available immediately.  () = the all-at-once batch queue.
     arrival_steps: tuple[int, ...] = ()
     device: str | None = None  # None = "cuda"
+    # depth cut of the config (None = its own): phi3.5-moe's 32 layers do
+    # not fit one 80 GB card in bf16, 24 do
+    n_layers: int | None = None
 
 
 @dataclasses.dataclass
@@ -78,6 +96,8 @@ def run(cfg: ServeConfig, params: dict | None = None) -> dict:
     model_cfg = registry.get(cfg.arch)
     if cfg.reduced:
         model_cfg = registry.reduced(model_cfg)
+    if cfg.n_layers is not None:
+        model_cfg = dataclasses.replace(model_cfg, n_layers=cfg.n_layers)
     model = build_model(model_cfg)
     if params is None:
         params = model.init_params(torch.Generator(device=dev).manual_seed(cfg.seed))
@@ -179,6 +199,8 @@ def main():
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--full", action="store_true", help="the published widths, not reduced")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (e.g. 24 for phi3.5-moe --full)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
     out = run(
@@ -189,6 +211,7 @@ def main():
             max_batch=args.max_batch,
             gen_len=args.gen_len,
             device=args.device,
+            n_layers=args.layers,
         )
     )
     print(

@@ -9,9 +9,11 @@ package's ``models/api.Model`` does:
 
 ``init_cache(model, ...)`` zeroes the caches of ``model.cache_specs``.
 
-The dense, VLM and audio families are ported; ``loss_fn`` comes with the
-training slice.  Every other family raises ``NotImplementedError`` naming
-its ROADMAP item.
+Every family of the reference is built: dense, MoE and VLM on
+``models.transformer``, ssm on ``models.rwkv6`` (whose ``cache_specs``
+ignores ``max_len``: the state is O(1) in the sequence, as in the
+reference), hybrid on ``models.hybrid``, audio on ``models.whisper``.
+``loss_fn`` comes with the training slice.
 """
 
 from __future__ import annotations
@@ -22,16 +24,10 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import transformer, whisper
+from repro_torch.models import hybrid, rwkv6, transformer, whisper
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Model", "build_model", "init_cache", "exact_n_params"]
-
-NOT_PORTED = {
-    "moe": transformer.MOE_TODO,
-    "ssm": "the ssm family (rwkv6) is not ported yet: ROADMAP Queue 1 item 11",
-    "hybrid": "the hybrid family (zamba2) is not ported yet: ROADMAP Queue 1 item 12",
-}
+__all__ = ["Model", "build_model", "init_cache", "exact_n_params", "exact_n_active_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +42,7 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     fam = cfg.family
-    if fam in ("dense", "vlm"):
+    if fam in ("dense", "moe", "vlm"):
         return Model(
             cfg=cfg,
             param_specs=lambda: transformer.param_specs(cfg),
@@ -63,8 +59,24 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_step=lambda p, t, c, n: whisper.decode_step(p, t, c, n, cfg),
             cache_specs=lambda batch, enc_len: whisper.cache_specs(cfg, batch, enc_len),
         )
-    if fam in NOT_PORTED:
-        raise NotImplementedError(NOT_PORTED[fam])
+    if fam == "ssm":
+        return Model(
+            cfg=cfg,
+            param_specs=lambda: rwkv6.param_specs(cfg),
+            init_params=lambda gen: rwkv6.init_params(gen, cfg),
+            decode_step=lambda p, t, c, n: rwkv6.decode_step(p, t, c, n, cfg),
+            cache_specs=lambda batch, max_len: rwkv6.cache_specs(cfg, batch),
+            prefill=lambda p, t: rwkv6.prefill(p, t, cfg),
+        )
+    if fam == "hybrid":
+        return Model(
+            cfg=cfg,
+            param_specs=lambda: hybrid.param_specs(cfg),
+            init_params=lambda gen: hybrid.init_params(gen, cfg),
+            decode_step=lambda p, t, c, n: hybrid.decode_step(p, t, c, n, cfg),
+            cache_specs=lambda batch, max_len: hybrid.cache_specs(cfg, batch, max_len),
+            prefill=lambda p, t: hybrid.prefill(p, t, cfg),
+        )
     raise ValueError(f"unknown family {fam}")
 
 
@@ -80,3 +92,14 @@ def init_cache(model: Model, batch: int, max_len: int, device) -> dict[str, torc
 def exact_n_params(cfg: ModelConfig) -> int:
     """Exact parameter count summed from the param specs (no allocation)."""
     return sum(math.prod(shape) for shape, _, _ in build_model(cfg).param_specs().values())
+
+
+def exact_n_active_params(cfg: ModelConfig) -> int:
+    """Active params per token: MoE expert tensors scaled by top_k/E."""
+    total = 0.0
+    for name, (shape, _, _) in build_model(cfg).param_specs().items():
+        n = math.prod(shape)
+        if name.startswith("we_") and cfg.n_experts:
+            n *= cfg.top_k / cfg.n_experts
+        total += n
+    return int(total)

@@ -1,9 +1,9 @@
-"""Dense and VLM transformer family (yi, qwen3, command-r, mistral-nemo, the
-internvl2 backbone) for serving.
+"""Dense / MoE / VLM transformer family (yi, qwen3, command-r, mistral-nemo,
+phi3.5-moe, arctic, the internvl2 backbone) for serving.
 
-The port of the JAX package's ``models/transformer.py``, dense and VLM only:
-the same parameter names, shapes and layouts (layer parameters stacked on a
-leading ``n_layers`` axis), the same entry points.  What differs, and why:
+The port of the JAX package's ``models/transformer.py``: the same parameter
+names, shapes and layouts (layer parameters stacked on a leading
+``n_layers`` axis), the same entry points.  What differs, and why:
 
 * **One card.** ``act_constrain`` and the logical-axis sharding annotations
   are dropped; the axes stay in ``param_specs`` as data.
@@ -27,7 +27,18 @@ leading ``n_layers`` axis), the same entry points.  What differs, and why:
   them to the model's dtype, projects them with ``patch_proj`` and puts
   them before the token embeddings, as the reference does.  RoPE positions
   and the cache run over all P + S positions; decode goes on at P + S.
-* The MoE branch raises ``NotImplementedError``.
+* **MoE** is the reference's capacity-bounded index dispatch, line for
+  line: fp32 router, top-k (a stable descending sort, so ties give the
+  lower expert first, as ``lax.top_k``), slot positions as an integer
+  exclusive cumsum over the flattened (S, K) order of each batch row,
+  dropped pairs on the overflow slot ``E*C`` (cut away; the sentinel token
+  ``S`` gathers a zero row), the expert products as ``torch.matmul`` over
+  the expert axis, the combine in the model's dtype.  The capacity
+  ``C = max(int(cf * S * K / E), 1)`` depends on S, so a prefill drops pairs
+  that one-token decode steps keep, as in the reference.  Arctic's dense
+  residual MLP is ``cfg.moe_dense_residual``.  ``init_params`` draws the
+  expert tensors a layer at a time (phi3.5-moe's ``we_gate`` alone would
+  be 40 GB drawn whole in fp32).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.kernels.decode_attn import ops as decode_ops
@@ -53,14 +65,12 @@ __all__ = [
     "cache_specs",
     "attend",
     "decode_attend",
+    "normal_init",
 ]
 
 Specs = dict[str, tuple[tuple[int, ...], tuple[str | None, ...], str]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-MOE_TODO = "the MoE family (phi3.5-moe, arctic) is not ported yet: ROADMAP Queue 1 item 9"
-
 
 # ---------------------------------------------------------------------------
 # parameter specs
@@ -112,18 +122,31 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> dict[str, torch.Tenso
     fp32 ``normal / sqrt(fan_in)`` cast to the config's dtype, norms set to
     ones, names in sorted order.  The bits differ from JAX's (another
     generator); parity tests carry the reference's parameters across with
-    ``convert.lm_params_from_jax``.
+    ``convert.lm_params_from_jax``.  The MoE expert tensors (``we_*``) are
+    drawn one layer slice at a time, so the fp32 draw never holds more than
+    one layer's experts.
     """
     params = {}
     for name, (shape, _, dtype) in sorted(param_specs(cfg).items()):
         if "norm" in name or name.startswith("ln"):
             params[name] = torch.ones(shape, dtype=DTYPES[dtype], device=gen.device)
+        elif name.startswith("we_"):
+            out = torch.empty(shape, dtype=DTYPES[dtype], device=gen.device)
+            for i in range(shape[0]):
+                out[i] = normal_init(gen, shape[1:], dtype)
+            params[name] = out
         else:
-            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-            w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-            params[name] = w.div_(math.sqrt(fan_in)).to(DTYPES[dtype])
-            del w
+            params[name] = normal_init(gen, shape, dtype)
     return params
+
+
+def normal_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
+    """fp32 ``normal / sqrt(fan_in)`` on ``gen``'s device, cast to ``dtype``
+    (a name of ``DTYPES``); fan_in is the second-to-last dim (the last for
+    a vector)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    return w.div_(math.sqrt(fan_in)).to(DTYPES[dtype])
 
 
 # ---------------------------------------------------------------------------
@@ -164,9 +187,66 @@ def _attention_block(x, lp, cfg: ModelConfig, rope, cpu_attention):
     return x + o, (k, v)
 
 
+def _moe_route(h, lp, cfg: ModelConfig):
+    """Top-k routing + capacity assignment. h: (B, S, d).
+
+    Returns (topv (B,S,K) fp32, topi (B,S,K), pos (B,S,K) int32, keep
+    (B,S,K) bool, C) where ``pos`` is each (token, k)'s slot within its
+    expert queue."""
+    B, S, _ = h.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = max(int(cfg.capacity_factor * S * K / E), 1)
+    logits = torch.matmul(h.to(torch.float32), lp["router"])
+    gates = torch.softmax(logits, dim=-1)
+    # lax.top_k: descending, the lower index first on ties
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :K], topi[..., :K]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    flat = topi.reshape(B, 1, S * K)
+    # one-hot laid out (B, E, S*K): the count runs along the last dim
+    em = (flat == torch.arange(E, device=h.device)[None, :, None]).to(torch.int32)
+    cum = torch.cumsum(em, dim=-1, dtype=torch.int32) - em  # exclusive count per expert
+    pos = torch.gather(cum, 1, flat)[:, 0].reshape(B, S, K)
+    return topv, topi, pos, pos < C, C
+
+
+def _moe_block(h, lp, cfg: ModelConfig):
+    """Capacity-bounded top-k MoE over (B, S, d) activations, index dispatch:
+    token indices are scattered into the (E * C [+1 overflow]) expert
+    queues, activations gathered by index, the expert products batched
+    over the expert axis, each (token, k)'s output gathered back and
+    weighted by its gate."""
+    B, S, d = h.shape
+    E, K = cfg.n_experts, cfg.top_k
+    topv, topi, pos, keep, C = _moe_route(h, lp, cfg)
+    slot = torch.where(keep, topi * C + pos, E * C).reshape(B, S * K)  # dropped -> overflow
+    tok_of_slot = torch.full((B, E * C + 1), S, dtype=torch.int64, device=h.device)
+    token_ids = (torch.arange(S * K, device=h.device) // K).expand(B, S * K)
+    tok_of_slot.scatter_(1, slot, token_ids)  # the overflow slot's winner is cut away
+    h_pad = torch.cat([h, h.new_zeros(B, 1, d)], dim=1)  # sentinel S -> zero row
+    idx = tok_of_slot[:, : E * C, None].expand(B, E * C, d)
+    xe = torch.gather(h_pad, 1, idx).reshape(B, E, C, d).transpose(0, 1)  # (E,B,C,d)
+    xe = xe.reshape(E, B * C, d)
+    g = torch.matmul(xe, lp["we_gate"])
+    u = torch.matmul(xe, lp["we_up"])
+    y = torch.matmul(F.silu(g) * u, lp["we_down"])  # (E, B*C, d)
+    yb = y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    yb = torch.cat([yb, yb.new_zeros(B, 1, d)], dim=1)
+    per_k = torch.gather(yb, 1, slot[..., None].expand(B, S * K, d))
+    per_k = per_k.reshape(B, S, K, d) * topv[..., None].to(y.dtype)
+    out = per_k.sum(2)
+    if cfg.moe_dense_residual:
+        out = out + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return out
+
+
 def _mlp(h, lp, cfg: ModelConfig):
+    """SwiGLU, or the MoE block.  h: (B, S, d), or (B, d) for a decode token,
+    which the MoE block sees as (B, 1, d), as in the reference."""
     if cfg.family == "moe":
-        raise NotImplementedError(MOE_TODO)
+        if h.dim() == 2:
+            return _moe_block(h[:, None], lp, cfg)[:, 0]
+        return _moe_block(h, lp, cfg)
     return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 

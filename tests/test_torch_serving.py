@@ -31,7 +31,12 @@ from repro.models import build_model as jbuild  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import build_model, exact_n_params, init_cache  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    build_model,
+    exact_n_active_params,
+    exact_n_params,
+    init_cache,
+)
 from repro_torch.models.config import n_active_params, n_params  # noqa: E402
 
 REF = dict(atol=1e-4, rtol=1e-4)
@@ -215,11 +220,22 @@ def test_entry_points_default_to_cuda():
         lm_params_from_jax({}, cfg)
 
 
-def test_unported_families_name_their_roadmap_item():
-    for name, item in (("phi3.5-moe-42b-a6.6b", "item 9"), ("rwkv6-1.6b", "item 11"),
-                       ("zamba2-2.7b", "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(registry.reduced(registry.get(name)))
-    # ported: the VLM (item 10) and whisper (item 13) build
-    for name in ("internvl2-26b", "whisper-medium"):
-        assert build_model(registry.reduced(registry.get(name))).cfg.name == name
+@pytest.mark.parametrize("arch", sorted(registry.ARCHS))
+def test_every_family_builds_with_the_reference_counts(arch):
+    """Every LM configuration builds (full width, no allocation), with the
+    reference's exact and active parameter counts; without a card, the
+    recurrent and MoE families' entry points raise on device=None too."""
+    from repro.models import exact_n_active_params as jactive
+    from repro.models import exact_n_params as jexact
+
+    cfg = registry.get(arch)
+    model = build_model(cfg)
+    assert model.cfg.name == arch
+    assert exact_n_params(cfg) == jexact(jregistry.get(arch))
+    assert exact_n_active_params(cfg) == jactive(jregistry.get(arch))
+    if torch.cuda.is_available() or cfg.family not in ("moe", "ssm", "hybrid"):
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(serve.ServeConfig(**_serve_cfg(arch=arch)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_jax({}, registry.reduced(cfg))
