@@ -21,6 +21,9 @@
                                       # later encode in one process; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
+    python3 chip_smoke.py --train     # build, then phases 18-22 only (LM training; with
+                                      # --profile, a full-width step profiled), and
+                                      # stop: no result lines
     python3 chip_smoke.py --families  # build, then phases 11b and 15-17 only (the MoE,
                                       # RWKV-6 and Zamba2 families; with --profile,
                                       # profiled), and stop: no result lines
@@ -199,6 +202,36 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 full-length bf16 shapes (d = 80, G = 1) against their plain
                 versions (3e-2), timed.
 Phases 15-17 run after phase 14.
+18. train_guard K4 and K5 on the card raise when autograd would record the
+                call (q, k or v requiring grad, gradients on) and launch
+                nothing; under ``no_grad`` each launches once.
+19. optim       AdamW, Adafactor and SGD (three updates, fp32 and bf16
+                parameters), clip, and int8 compress -> decompress (three
+                steps) on one fixed tree, card against CPU: the int8 codes
+                equal, the rest within 1e-5 of each leaf's scale (bf16: one
+                ulp).
+20. train_parity
+                the six reduced families in fp32 (dense, MoE, VLM with patches,
+                rwkv6, zamba2, whisper with frames), one set of seed-drawn
+                parameters on the card and on the port's CPU path: the loss,
+                every gradient and one ``train_step`` (clip, AdamW) within the
+                fp32 bound (rwkv6's and zamba2's gradients: 5e-4 of each
+                leaf's scale); K4
+                and K5 launch 0 times in a step (training takes the plain
+                attention), K1 once for internvl2 and whisper.
+21. train_slice yi-9b at full width in bf16, depth cut from 48 to 8 layers (48
+                layers and their AdamW state are 106 GB), B = 2 x 4096 tokens,
+                AdamW, remat: 6 steps of ``train.build_train_state``'s step
+                (CUDA events; the first step apart), tokens/s, peak memory, the
+                model-FLOP share of the bf16 peak, every loss and gradient
+                norm finite; the parameters checkpointed and restored bit for
+                bit; int8_ef for 2 steps at full width where the peak leaves
+                room (else at 100M in 22).
+22. train_lm    the twin of ``examples/train_lm.py``: yi-100m in fp32, B 4, S
+                128, 60 steps with a crash at 30, a resume from the newest
+                checkpoint and a second from the same one: the same losses
+                bit for bit.
+Phases 18-22 run after phase 17.
 
 Last, ``capture_fails``: a capture made to read a value back to the host
 raises, caches no graph and falls back to nothing.  The last three lines
@@ -3055,6 +3088,438 @@ def phase_hybrid_slice(torch, profile: bool = False):
     return main["launches"]
 
 
+# ---------------------------------------------------------------------------
+# LM training: K4/K5 refuse autograd, the card against the CPU, yi-9b at
+# full width, the train_lm drill
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = ("yi-9b", PHI, "internvl2-26b", "rwkv6-1.6b", "zamba2-2.7b", "whisper-medium")
+TRAIN_PARITY_SHAPE = (2, 32)  # B, seq_len of the reduced families' parity step
+# the recurrent families' gradients (rwkv6, zamba2) are held to this share of
+# each leaf's largest magnitude: at init a per-head or gated RMS norm
+# normalises near-zero outputs and scales their gradients up, so the order
+# of a sum shows (tests/test_torch_loss.py; the reference's own jitted and
+# op-by-op gradients part by up to 4.4e-5 (rwkv6) and 7.1e-5 (zamba2) of a
+# leaf's scale on the CPU)
+RECURRENT_GRAD_REL = 5e-4
+OPTIM_SHAPES = {"w": (512, 768), "stack": (4, 128, 96), "b": (768,)}
+OPTIM_FP32_REL = 1e-5  # fp32 leaves, card vs CPU, of the leaf's largest magnitude
+BF16_ULP = 2.0 ** -8
+TRAIN_SLICE_LAYERS = 8      # yi-9b's 48 layers and their AdamW state are 106 GB
+TRAIN_SLICE_SHAPE = (2, 4096)  # global batch, seq_len: the reference's train_4k shape
+TRAIN_SLICE_STEPS = 6
+TRAIN_SLICE_EF_STEPS = 2    # int8_ef steps at full width, where the peak leaves room
+EF_BYTES_PER_PARAM = 13     # the old and new fp32 error buffers, the int8 codes, fp32 grads
+TRAIN_LM_STEPS = 60         # the train_lm drill: a crash at half, resumes from the newest
+TRAIN_LM_EF_STEPS = 10
+
+
+def _parity_gap(got, want, recurrent_grads: bool) -> tuple[float, float, bool]:
+    """The largest |got - want| of one leaf (card, CPU), the same as a share
+    of the leaf's largest magnitude, and whether it is within the bound:
+    LM_PARITY_TOL absolute and relative; for a recurrent family's gradients
+    RECURRENT_GRAD_REL of the leaf's largest magnitude."""
+    diff = (got.float().cpu() - want.float()).abs()
+    gap = float(diff.max())
+    scaled = gap / max(float(want.float().abs().max()), 1e-30)
+    if recurrent_grads:
+        return gap, scaled, scaled <= RECURRENT_GRAD_REL
+    return gap, scaled, bool((diff <= LM_PARITY_TOL * (1 + want.float().abs())).all())
+
+
+def phase_train_guard(torch):
+    """K4 and K5 on the card refuse a call that autograd would record (any of
+    q, k, v requiring grad) and launch nothing; under no_grad each launches
+    once, as before."""
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=torch.bfloat16)
+
+    kv_len = torch.full((4,), 512, dtype=torch.int32, device="cuda")
+    cases = {
+        "flash_attention": (fops, lambda q, k, v: fops.flash_attention(q, k, v, causal=True),
+                            (rnd(1, 256, 32, 128), rnd(1, 256, 4, 128), rnd(1, 256, 4, 128))),
+        "decode_attention": (dops, lambda q, k, v: dops.decode_attention(q, k, v, kv_len),
+                             (rnd(4, 32, 128), rnd(4, 512, 4, 128), rnd(4, 512, 4, 128))),
+    }
+    records = {}
+    for name, (mod, call, inputs) in cases.items():
+        refused = {}
+        for i, which in enumerate("qkv"):
+            args = [t.clone().requires_grad_(j == i) for j, t in enumerate(inputs)]
+            before = mod.LAUNCHES[name]
+            try:
+                call(*args)
+                refused[which] = False
+            except RuntimeError as e:
+                refused[which] = "no backward" in str(e) and mod.LAUNCHES[name] == before
+        before = mod.LAUNCHES[name]
+        with torch.no_grad():
+            out = call(*[t.clone().requires_grad_() for t in inputs])
+        torch.cuda.synchronize()
+        records[name] = dict(refused_under_autograd=refused,
+                             no_grad_launches=mod.LAUNCHES[name] - before,
+                             no_grad_finite=bool(torch.isfinite(out).all()))
+    ok = all(all(r["refused_under_autograd"].values()) and r["no_grad_launches"] == 1
+             and r["no_grad_finite"] for r in records.values())
+    emit("train_guard", **records, ok=ok)
+    if not ok:
+        raise SystemExit(f"K4/K5 must refuse autograd on the card: {records}")
+
+
+def _optim_gap(got: dict, want: dict, slack: dict | None = None) -> tuple[float, bool]:
+    """The largest gap of a dict of leaves as a share of each leaf's largest
+    magnitude, and whether every leaf is within its bound (fp32
+    OPTIM_FP32_REL, bf16 one ulp, plus ``slack`` of the leaf)."""
+    worst, ok = 0.0, True
+    for k, w in want.items():
+        g, w32 = got[k].float().cpu(), w.float()
+        rel = float((g - w32).abs().max()) / max(float(w32.abs().max()), 1e-30)
+        bound = (BF16_ULP if w.element_size() == 2 else OPTIM_FP32_REL) + (slack or {}).get(k, 0.0)
+        worst, ok = max(worst, rel), ok and rel <= bound
+    return worst, ok
+
+
+def phase_optim(torch):
+    """Each optimizer (three updates), clip and compress -> decompress (three
+    steps) on one fixed tree, on the card and on the CPU: the int8 codes
+    equal, the rest within OPTIM_FP32_REL of each leaf's scale (bf16: one
+    ulp; Adafactor's parameters also lr x one bf16 ulp of its momentum an
+    update)."""
+    import numpy as np
+
+    from repro_torch import optim
+    from repro_torch.optim import compress
+
+    started = time.perf_counter()
+    rng = np.random.default_rng(0)
+    p0 = {k: rng.normal(size=s).astype(np.float32) for k, s in OPTIM_SHAPES.items()}
+    gs = [{k: (rng.normal(size=s) * 0.5).astype(np.float32) for k, s in OPTIM_SHAPES.items()}
+          for _ in range(3)]
+    peak_lr = 0.1
+    makers = {"adamw": lambda: optim.adamw(lr=optim.cosine_warmup(peak_lr, 2, 10)),
+              "adafactor": lambda: optim.adafactor(lr=optim.cosine_warmup(peak_lr, 2, 10)),
+              "sgd": lambda: optim.sgd_momentum(lr=0.05)}
+
+    def tensors(tree, dev, dtype=torch.float32):
+        return {k: torch.from_numpy(v).to(dev, dtype) for k, v in tree.items()}
+
+    records, ok = {}, True
+    for name, make in makers.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            out = {}
+            for dev in ("cuda", "cpu"):
+                opt = make()
+                p = tensors(p0, dev, dtype)
+                s = opt.init(p)
+                for g in gs:
+                    p, s = opt.update(tensors(g, dev, dtype), s, p)
+                out[dev] = (p, s)
+            (pc, sc), (pp, sp) = out["cuda"], out["cpu"]
+            slack = ({k: 3 * peak_lr * BF16_ULP * float(sp.mu[k].float().abs().max())
+                      / max(float(pp[k].float().abs().max()), 1e-30) for k in pp}
+                     if name == "adafactor" else None)
+            gaps = {"params": _optim_gap(pc, pp, slack)}
+            for field in sp._fields:
+                if isinstance(getattr(sp, field), dict):
+                    gaps[field] = _optim_gap(getattr(sc, field), getattr(sp, field))
+            step_equal = int(sc.step) == int(sp.step) == 3
+            rec_ok = step_equal and all(v[1] for v in gaps.values())
+            records[f"{name}_{str(dtype)[6:]}"] = {k: v[0] for k, v in gaps.items()} | {
+                "ok": rec_ok}
+            ok = ok and rec_ok
+    clip = {dev: optim.clip_by_global_norm(tensors(gs[0], dev), 1.0) for dev in ("cuda", "cpu")}
+    norm_rel = abs(float(clip["cuda"][1]) - float(clip["cpu"][1])) / float(clip["cpu"][1])
+    clip_gap, clip_ok = _optim_gap(clip["cuda"][0], clip["cpu"][0])
+    records["clip"] = {"norm_rel_gap": norm_rel, "grads": clip_gap,
+                       "ok": clip_ok and norm_rel <= OPTIM_FP32_REL}
+    state = {dev: compress.init_state(tensors(p0, dev)) for dev in ("cuda", "cpu")}
+    codes_equal, scales_equal, err_gap, deq_gap = True, True, 0.0, 0.0
+    for it, g in enumerate(gs):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            codes, scales, state[dev] = compress.compress_gradients(
+                tensors({k: v * 10.0 ** (it - 1) for k, v in g.items()}, dev), state[dev])
+            res[dev] = (codes, scales, compress.decompress_gradients(codes, scales))
+        for k in g:
+            codes_equal &= torch.equal(res["cuda"][0][k].cpu(), res["cpu"][0][k])
+            scales_equal &= float(res["cuda"][1][k]) == float(res["cpu"][1][k])
+            err_gap = max(err_gap, float((state["cuda"].error[k].cpu()
+                                          - state["cpu"].error[k]).abs().max()))
+            deq_gap = max(deq_gap, float((res["cuda"][2][k].cpu() - res["cpu"][2][k]).abs().max()))
+    records["compress"] = {"codes_equal": codes_equal, "scales_equal": scales_equal,
+                           "error_max_abs_gap": err_gap, "decompressed_max_abs_gap": deq_gap,
+                           "ok": codes_equal}
+    ok = ok and records["clip"]["ok"] and codes_equal
+    emit("optim", seconds=time.perf_counter() - started, shapes=OPTIM_SHAPES,
+         fp32_rel_bound=OPTIM_FP32_REL, bf16_bound=BF16_ULP, **records, ok=ok)
+    if not ok:
+        raise SystemExit(f"the optimizers on the card leave the CPU path: {records}")
+
+
+def phase_train_parity(torch):
+    """The six reduced families in fp32, one set of seed-drawn parameters on
+    the card and on the port's CPU path: the loss, every gradient, and one
+    ``train_step`` (clip, AdamW) within the fp32 bound; K4 and K5 launch 0
+    times in a step, K1 once for internvl2 and whisper (their patches and
+    frames)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenConfig, TokenStream
+    from repro_torch.launch import train
+
+    B, S = TRAIN_PARITY_SHAPE
+    for arch in TRAIN_FAMILIES:
+        started = time.perf_counter()
+        cfg = registry.reduced(registry.get(arch))
+        tcfg = train.TrainConfig(arch=arch, global_batch=B, seq_len=S)
+        model, opt, _, step = train.build_train_state(cfg)
+        params = {"cpu": model.init_params(torch.Generator().manual_seed(0))}
+        params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
+        stream = TokenStream(TokenConfig(cfg.vocab_size, S, B, 0))
+        res, launches = {}, None
+        for dev in ("cuda", "cpu"):
+            batch = train.step_batch(stream, 0, cfg, tcfg, dev)
+            leaves = {k: v.detach().clone().requires_grad_() for k, v in params[dev].items()}
+            loss = model.loss_fn(leaves, batch)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            counts = _reset_all_counts()
+            p1, s1, _, loss1, gnorm = step(params[dev], opt.init(params[dev]), None, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = counts()
+            res[dev] = {"loss": {"loss": loss.detach(), "step_loss": loss1, "gnorm": gnorm},
+                        "grads": grads, "params": p1, "mu": s1.mu, "nu": s1.nu}
+        recurrent = cfg.family in ("ssm", "hybrid")
+        gaps, scaled, ok = {}, {}, True
+        for part, leaves in res["cpu"].items():
+            per = {k: _parity_gap(res["cuda"][part][k], v, recurrent and part == "grads")
+                   for k, v in leaves.items()}
+            gaps[part] = max(g for g, _, _ in per.values())
+            scaled[part] = max(s for _, s, _ in per.values())
+            ok = ok and all(within for _, _, within in per.values())
+        k1_want = 1 if cfg.family in ("vlm", "audio") else 0
+        kernels_ok = (launches["flash_attention"] == 0 and launches["decode_attention"] == 0
+                      and launches["pruned_quantize"] == k1_want)
+        ok = ok and kernels_ok
+        emit("train_parity", seconds=time.perf_counter() - started,
+             arch=f"{arch} (reduced, fp32)", batch=[B, S],
+             loss_card=float(res["cuda"]["loss"]["loss"]),
+             max_abs_gap=gaps, max_gap_of_leaf_scale=scaled, tol=LM_PARITY_TOL,
+             grad_bound=(f"{RECURRENT_GRAD_REL} of each leaf's scale" if recurrent else "tol"),
+             step_launches={k: launches[k] for k in
+                            ("flash_attention", "decode_attention", "pruned_quantize")},
+             kernels_ok=kernels_ok, ok=ok)
+        if not ok:
+            raise SystemExit(f"the card's reduced {arch} training step leaves the CPU path")
+
+
+def _attention_fp32_flops(cfg, B: int, S: int) -> float:
+    """fp32 FLOPs of the plain attention's two score GEMMs (QK^T, PV; the
+    mask is applied after, so all S^2 pairs) in one rematted step: the
+    forward, its recomputation and the backward's two GEMMs a product."""
+    per_forward = 2 * (2 * B * cfg.n_heads * S * S * cfg.hd)
+    return 4 * per_forward * cfg.n_layers
+
+
+def phase_train_slice(torch, profile: bool = False):
+    """yi-9b at full width, depth cut to TRAIN_SLICE_LAYERS, bf16, AdamW,
+    remat: TRAIN_SLICE_STEPS steps of ``train.build_train_state``'s step on
+    the reference's train_4k shape, timed by CUDA events; peak memory; the
+    parameters checkpointed and restored bit for bit; int8_ef at full width
+    where the peak leaves room."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.tokens import TokenConfig, TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import exact_n_params
+    from repro_torch.optim import compress
+
+    started = time.perf_counter()
+    allocated_before = _free_device(torch)
+    B, S = TRAIN_SLICE_SHAPE
+    tcfg = train.TrainConfig(arch="yi-9b", reduced=False, n_layers=TRAIN_SLICE_LAYERS,
+                             global_batch=B, seq_len=S)
+    cfg = train.model_config(tcfg)
+    model, opt, init_fn, step = train.build_train_state(cfg)
+    n_params = exact_n_params(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt_state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated() - allocated_before
+    stream = TokenStream(TokenConfig(cfg.vocab_size, S, B, 0))
+
+    def run_steps(fn, first: int, n: int, comp=None):
+        nonlocal params, opt_state
+        out = {"losses": [], "gnorms": [], "step_ms": [], "wall_ms": []}
+        for i in range(first, first + n):
+            batch = train.step_batch(stream, i, cfg, tcfg, "cuda")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            params, opt_state, comp, loss, gnorm = fn(params, opt_state, comp, batch)
+            end.record()
+            torch.cuda.synchronize()
+            out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["step_ms"].append(start.elapsed_time(end))
+            out["losses"].append(float(loss))
+            out["gnorms"].append(float(gnorm))
+        return out
+
+    counts = _reset_all_counts()
+    timed = run_steps(step, 0, TRAIN_SLICE_STEPS)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady_ms = statistics.median(timed["step_ms"][1:])
+    tokens = B * S
+    model_flops = 6 * n_params * tokens
+    attn_flops = _attention_fp32_flops(cfg, B, S)
+    prof = None
+    if profile:
+        prof = _profiled(torch, lambda: step(params, opt_state, None,
+                                             train.step_batch(stream, 0, cfg, tcfg, "cuda")),
+                         "profile_train_yi9b_step.json")
+    # int8_ef at full width where the measured peak leaves room for its buffers
+    total = torch.cuda.get_device_properties(0).total_memory
+    ef_room = peak + EF_BYTES_PER_PARAM * n_params < 0.9 * total
+    ef = None
+    if ef_room:
+        torch.cuda.reset_peak_memory_stats()
+        _, _, _, ef_step = train.build_train_state(cfg, "int8_ef")
+        ef = run_steps(ef_step, TRAIN_SLICE_STEPS, TRAIN_SLICE_EF_STEPS,
+                       compress.init_state(params))
+        ef["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    # the parameters through a checkpoint: bf16 bits out and back
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params")
+        t0 = time.perf_counter()
+        ckpt.save_pytree(path, params, step=TRAIN_SLICE_STEPS)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, manifest = ckpt.load_pytree(path)
+        load_s = time.perf_counter() - t0
+        restored_equal = all(tree[k].dtype == p.dtype == torch.bfloat16
+                             and torch.equal(tree[k].to("cuda"), p) for k, p in params.items())
+        bf16_manifest = all(m["dtype"] == "bfloat16" for m in manifest["leaves"].values())
+        del tree
+    del params, opt_state
+    finite = all(math.isfinite(x) for x in timed["losses"] + timed["gnorms"]
+                 + (ef["losses"] + ef["gnorms"] if ef else []))
+    checks = dict(finite=finite, restored_bit_equal=restored_equal,
+                  manifest_bfloat16=bf16_manifest,
+                  no_attention_kernel=launches["flash_attention"] == 0
+                  and launches["decode_attention"] == 0 and launches["pruned_quantize"] == 0)
+    emit("train_slice", seconds=time.perf_counter() - started, arch=cfg.name, dtype=cfg.dtype,
+         n_layers=cfg.n_layers, d_model=cfg.d_model, global_batch=B, seq_len=S,
+         optimizer=type(opt).__name__, remat=cfg.remat, n_params=n_params,
+         state_bytes=state_bytes, allocated_before_bytes=allocated_before, init_s=init_s,
+         first_step_ms=timed["step_ms"][0], step_ms_median=steady_ms, **timed,
+         tokens_per_step=tokens, tokens_per_s=tokens / (steady_ms / 1e3),
+         peak_memory_bytes=peak, total_memory_bytes=total,
+         model_flops_per_step=model_flops,
+         bf16_peak_share=model_flops / (steady_ms / 1e3) / BF16_FLOPS,
+         attention_fp32_flops_per_step=attn_flops,
+         attention_fp32_ms_at_peak=attn_flops / FP32_FLOPS * 1e3,
+         attention_fp32_share_at_peak=attn_flops / FP32_FLOPS * 1e3 / steady_ms,
+         profile=prof, int8_ef_full_width=ef_room, int8_ef=ef,
+         checkpoint={"save_s": save_s, "load_s": load_s, "bytes": 2 * n_params},
+         launches=launches, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"train_slice checks failed: {checks}")
+    return ef_room
+
+
+def phase_train_lm(torch, int8_ef: bool):
+    """The twin of ``examples/train_lm.py`` on the card: yi-100m in fp32, B 4,
+    S 128, TRAIN_LM_STEPS steps with a crash at half, a resume from the
+    newest checkpoint and a second resume from the same checkpoint, which
+    must give the same losses bit for bit (the embedding's backward sorts
+    its indices on CUDA: on an NVIDIA H100 80GB HBM3 the two agreed with and
+    without ``torch.use_deterministic_algorithms``); with
+    ``int8_ef``, TRAIN_LM_EF_STEPS steps with int8 gradient compression."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry
+    from repro_torch.launch import train, train_lm
+
+    started = time.perf_counter()
+    _free_device(torch)
+    cfg = train_lm.hundred_m_config()
+    registry.ARCHS[cfg.name] = cfg
+    common = dict(arch=cfg.name, reduced=False, steps=TRAIN_LM_STEPS, global_batch=4,
+                  seq_len=128, ckpt_every=25, log_every=10 ** 9, device="cuda")
+    counts = _reset_all_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {n: os.path.join(tmp, n) for n in "ab"}
+        t0 = time.perf_counter()
+        try:
+            train.run(train.TrainConfig(**common, ckpt_dir=dirs["a"],
+                                        crash_at=TRAIN_LM_STEPS // 2))
+            crashed = False
+        except RuntimeError as e:
+            crashed = "injected" in str(e)
+        crash_run_s = time.perf_counter() - t0
+        mgr = CheckpointManager(dirs["a"])
+        newest = mgr.latest_step()
+        mgr.close()
+        shutil.copytree(dirs["a"], dirs["b"])
+        runs, seconds = {}, {}
+        for n in "ab":
+            t0 = time.perf_counter()
+            runs[n] = train.run(train.TrainConfig(**common, ckpt_dir=dirs[n], resume=True))
+            seconds[n] = time.perf_counter() - t0
+        ef = None
+        if int8_ef:
+            ef = train.run(train.TrainConfig(**dict(common, steps=TRAIN_LM_EF_STEPS),
+                                             ckpt_dir=os.path.join(tmp, "ef"),
+                                             grad_compression="int8_ef"))
+    launches = counts()
+    a, b = runs["a"], runs["b"]
+    losses = a["losses"] + b["losses"] + (ef["losses"] if ef else [])
+    checks = dict(
+        crashed=crashed,
+        checkpoint_before_crash=newest is not None,
+        resumed_from_newest=all(r["start_step"] == (newest or 0) for r in runs.values()),
+        replayed_steps=all(len(r["losses"]) == TRAIN_LM_STEPS - (newest or 0)
+                           for r in runs.values()),
+        finite=all(math.isfinite(x) for x in losses),
+        loss_falls=a["final_loss"] < a["losses"][0],
+        replay_equal=a["losses"] == b["losses"],
+        no_attention_kernel=launches["flash_attention"] == 0
+        and launches["decode_attention"] == 0,
+    )
+    if ef:
+        checks["int8_ef_loss_falls"] = ef["final_loss"] < ef["losses"][0]
+    emit("train_lm", seconds=time.perf_counter() - started, arch=cfg.name,
+         n_params=train_lm.exact_n_params(cfg), dtype=cfg.dtype, global_batch=4, seq_len=128,
+         steps=TRAIN_LM_STEPS, crash_at=TRAIN_LM_STEPS // 2, newest_checkpoint=newest,
+         crash_run_s=crash_run_s, resume_s=seconds, first_resume_losses=a["losses"],
+         replay_max_abs_gap=max(abs(p - q) for p, q in zip(a["losses"], b["losses"])),
+         int8_ef=(dict(losses=ef["losses"]) if ef else None),
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"train_lm checks failed: {checks}")
+
+
+def phase_train(torch, profile: bool = False) -> None:
+    """Phases 18-22: LM training."""
+    phase_train_guard(torch)
+    phase_optim(torch)
+    phase_train_parity(torch)
+    full_width_ef = phase_train_slice(torch, profile=profile)
+    phase_train_lm(torch, int8_ef=not full_width_ef)
+
+
 def build_all(torch) -> None:
     """Build every kernel library at once: one nvcc per source, in parallel;
     then print what ptxas reported for each kernel (registers, static shared
@@ -3567,6 +4032,9 @@ def main() -> int:
         for path in (phase_moe_slice, phase_ssm_slice, phase_hybrid_slice):
             path(torch, profile=profile)
         return 0
+    if "--train" in args:  # LM training alone: build, run phases 18-22, stop
+        phase_train(torch, profile)
+        return 0
     if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
         phase_service(torch, profile=profile)
         return 0
@@ -3610,6 +4078,7 @@ def main() -> int:
                  phase_ssm_slice, phase_hybrid_slice):
         for kname, n in path(torch, profile=profile).items():
             launches[kname] = launches.get(kname, 0) + n
+    phase_train(torch, profile)
 
     train = kern[128]
     rows = []

@@ -17,7 +17,9 @@ dtype (``variant``): bf16 scores on the tensor cores, for G <= 8 query
 heads a KV head and d a multiple of 16; fp32 on the CUDA cores.  Device
 rule: a tensor on the CPU takes the plain PyTorch version in ``ref``; a
 tensor on CUDA launches the kernel or raises.  There is no fallback
-between the two.  ``LAUNCHES`` counts calls that launched.
+between the two.  ``LAUNCHES`` counts calls that launched.  The kernel has
+no backward: a CUDA call that autograd would record raises
+(``kernels.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_autograd
 from repro_torch.kernels.decode_attn import ref
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "build", "split_plan", "variant",
@@ -150,6 +152,8 @@ def decode_attention(q, k_cache, v_cache, kv_len=None) -> torch.Tensor:
         kv_len = torch.full((B,), S, dtype=torch.int32, device=q.device)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_len)
+    refuse_autograd("K5 (decode_attn.ops.decode_attention)",
+                    "models.layers.decode_attention_plain", q, k_cache, v_cache)
     if not q.is_contiguous() or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("the kernel takes a contiguous q and caches with unit stride in d")
     if B < 1 or S < 1 or B > 65535 or Hkv > 65535:

@@ -15,6 +15,9 @@ tensor on the CPU takes the plain PyTorch version in ``ref``; a tensor on
 CUDA launches a kernel or raises.  There is no fallback between them.
 ``LAUNCHES`` counts launches: ``flash_attention`` every call, and
 ``flash_attention_tc`` / ``flash_attention_fp32`` the variant that ran.
+The kernels have no backward: a CUDA call that autograd would record
+raises (``kernels.refuse_autograd``); training takes the plain versions of
+``models/layers``, as the reference does.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_autograd
 from repro_torch.kernels.flash_attn import ref
 
 __all__ = ["LAUNCHES", "TC_HEAD_DIMS", "reset_launch_counts", "build", "build_tc", "variant",
@@ -120,6 +123,8 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     B, Sq, Sk, Hq, Hkv, d = _check(q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal)
+    refuse_autograd("K4 (flash_attn.ops.flash_attention)",
+                    "models.layers.plain_attention or layers.flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous for the kernel")

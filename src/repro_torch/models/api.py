@@ -4,6 +4,8 @@
 package's ``models/api.Model`` does:
   * ``param_specs()``     -- {name: (shape, logical_axes, dtype)} (no alloc)
   * ``init_params(gen)``  -- random tensors on the ``torch.Generator``'s device
+  * ``loss_fn(params, batch)`` -- scalar train loss (plain attention on
+    every device; differentiate it with gradients on)
   * ``prefill / decode_step / cache_specs`` -- serving entry points
     (``prefill`` is None for the audio family, as in the reference)
 
@@ -13,7 +15,6 @@ Every family of the reference is built: dense, MoE and VLM on
 ``models.transformer``, ssm on ``models.rwkv6`` (whose ``cache_specs``
 ignores ``max_len``: the state is O(1) in the sequence, as in the
 reference), hybrid on ``models.hybrid``, audio on ``models.whisper``.
-``loss_fn`` comes with the training slice.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ class Model:
     cfg: ModelConfig
     param_specs: Callable[[], dict]
     init_params: Callable[[torch.Generator], dict]
+    loss_fn: Callable[[dict, dict], torch.Tensor]
     decode_step: Callable[..., Any]
     cache_specs: Callable[..., dict]
     prefill: Callable[..., Any] | None = None
@@ -47,6 +49,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             param_specs=lambda: transformer.param_specs(cfg),
             init_params=lambda gen: transformer.init_params(gen, cfg),
+            loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c, n: transformer.decode_step(p, t, c, n, cfg),
             cache_specs=lambda batch, max_len: transformer.cache_specs(cfg, batch, max_len),
             prefill=lambda p, t, pe=None: transformer.prefill(p, t, cfg, pe),
@@ -56,6 +59,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             param_specs=lambda: whisper.param_specs(cfg),
             init_params=lambda gen: whisper.init_params(gen, cfg),
+            loss_fn=lambda p, b: whisper.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c, n: whisper.decode_step(p, t, c, n, cfg),
             cache_specs=lambda batch, enc_len: whisper.cache_specs(cfg, batch, enc_len),
         )
@@ -64,6 +68,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             param_specs=lambda: rwkv6.param_specs(cfg),
             init_params=lambda gen: rwkv6.init_params(gen, cfg),
+            loss_fn=lambda p, b: rwkv6.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c, n: rwkv6.decode_step(p, t, c, n, cfg),
             cache_specs=lambda batch, max_len: rwkv6.cache_specs(cfg, batch),
             prefill=lambda p, t: rwkv6.prefill(p, t, cfg),
@@ -73,6 +78,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             param_specs=lambda: hybrid.param_specs(cfg),
             init_params=lambda gen: hybrid.init_params(gen, cfg),
+            loss_fn=lambda p, b: hybrid.loss_fn(p, b, cfg),
             decode_step=lambda p, t, c, n: hybrid.decode_step(p, t, c, n, cfg),
             cache_specs=lambda batch, max_len: hybrid.cache_specs(cfg, batch, max_len),
             prefill=lambda p, t: hybrid.prefill(p, t, cfg),

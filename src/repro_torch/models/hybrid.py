@@ -1,4 +1,4 @@
-"""Zamba2 hybrid: a Mamba2 (SSD) backbone + one shared attention block, for serving.
+"""Zamba2 hybrid: a Mamba2 (SSD) backbone + one shared attention block.
 
 The port of the JAX package's ``models/hybrid.py``: the same parameter
 names, shapes and layouts, the same entry points.  Mamba2 blocks use the
@@ -9,8 +9,11 @@ cache per invocation) provides the global mixing.  Decode carries
 {ssm_state, conv_state} per Mamba layer and a KV cache per shared-attention
 invocation.  What differs from the reference, and why:
 
-* **One card, inference only.** The sharding annotations and remat are
-  dropped; layers run as a Python loop under ``torch.inference_mode()``.
+* **One card.** The sharding annotations are dropped; layers run as a
+  Python loop, the serving entry points under ``torch.inference_mode()``.
+  ``loss_fn`` runs with gradients on, each Mamba2 block recomputed in the
+  backward pass with ``cfg.remat`` (the shared block is not, as in the
+  reference).
 * **Chunks in parallel, the carry alone in sequence.** The reference scans
   chunk by chunk.  Here every chunk's intra-chunk output and state
   contribution are computed at once, and only the (B, H, hd, N) state
@@ -19,9 +22,10 @@ invocation.  What differs from the reference, and why:
 * **Attention on a CUDA tensor goes to the hand-written kernels**, through
   ``transformer.attend`` and ``transformer.decode_attend``: K4 in the
   shared block of ``forward`` and ``prefill``, K5 in ``decode_step`` (once
-  per invocation, ``n_super`` a step).  On the CPU the plain versions the
-  reference uses run (``plain_attention`` up to 8192 positions, the blocked
-  scan beyond; ``decode_attention_jnp``'s twin).
+  per invocation, ``n_super`` a step).  On the CPU, and in ``loss_fn`` on
+  every device, the plain versions the reference uses run
+  (``plain_attention`` up to 8192 positions, the blocked scan beyond;
+  ``decode_attention_jnp``'s twin).
 * **``decode_step`` writes the states and the new k/v into the cache in
   place** and returns the same dict; a row at or past the cache's length is
   written nowhere, as the reference's where-update.
@@ -37,12 +41,13 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, Specs, normal_init
+from repro_torch.models.transformer import DTYPES, Specs, normal_init, remat
 
 __all__ = [
     "param_specs",
     "init_params",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "cache_specs",
@@ -210,9 +215,11 @@ def _mamba_block(x, lp, cfg: ModelConfig, conv_state=None, ssm_state=None):
 # shared attention block (zamba2)
 # ---------------------------------------------------------------------------
 
-def _shared_attn(x, rest, cfg: ModelConfig, rope=None, kv=None, kv_len=None):
+def _shared_attn(x, rest, cfg: ModelConfig, rope=None, kv=None, kv_len=None,
+                 train: bool = False):
     """Full sequence (kv=None; ``rope``: ``layers.rope_angles`` of the
-    positions) or decode (kv=(kc, vc), written in place at kv_len).
+    positions; ``train``: the plain attention on every device) or decode
+    (kv=(kc, vc), written in place at kv_len).
     Returns (x, (k, v)): the new keys/values, or the caches."""
     B = x.shape[0]
     d = cfg.d_model
@@ -226,8 +233,8 @@ def _shared_attn(x, rest, cfg: ModelConfig, rope=None, kv=None, kv_len=None):
         v = torch.matmul(h, rest["sa_wv"]).reshape(B, S, Hkv, ahd)
         q = L.rotate(q, *rope)
         k = L.rotate(k, *rope)
-        cpu_attention = L.flash_attention if S > 8192 else L.plain_attention
-        o = transformer.attend(q, k, v, True, cpu_attention)
+        plain = L.flash_attention if S > 8192 else L.plain_attention
+        o = transformer.attend(q, k, v, True, plain, train)
         o = torch.matmul(o.reshape(B, S, Hq * ahd), rest["sa_wo"])
         new_kv = (k, v)
     else:
@@ -278,7 +285,12 @@ def _head(x, rest):
     return torch.matmul(L.rms_norm(x, rest["final_norm"]), rest["lm_head"])
 
 
-def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool):
+def _mamba_residual(x, lp, cfg: ModelConfig):
+    o, cs, ss = _mamba_block(x, lp, cfg)
+    return x + o, cs, ss
+
+
+def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool, train: bool = False):
     stacked, rest = _split(params)
     x = rest["embed"][tokens]
     B, S, _ = x.shape
@@ -286,6 +298,7 @@ def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool):
     n_super, per = _n_super(cfg)
     rope = L.rope_angles(torch.arange(S, device=x.device), cfg.d_model // cfg.n_heads,
                          cfg.rope_theta)
+    layers = transformer.unstack(stacked)
     cache = None
     if keep_cache:
         nl = cfg.n_layers
@@ -300,22 +313,28 @@ def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool):
                 cache[n] = torch.empty(kv_shape, dtype=x.dtype, device=x.device)
     for s in range(n_super):
         for i in range(s * per, (s + 1) * per):
-            o, cs, ss = _mamba_block(x, {k: v[i] for k, v in stacked.items()}, cfg)
-            x = x + o
+            x, cs, ss = remat(_mamba_residual, x, layers[i], cfg, train=train, cfg=cfg)
             if keep_cache:
                 cache["conv_state"][i] = cs
                 cache["ssm_state"][i] = ss
         if cfg.attn_every:
-            x, (k, v) = _shared_attn(x, rest, cfg, rope)
+            x, (k, v) = _shared_attn(x, rest, cfg, rope, train=train)
             if keep_cache:
                 cache["sa_k"][s] = k
                 cache["sa_v"][s] = v
     return _head(x, rest), cache
 
 
-def forward(params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, S, V) of a full sequence."""
-    return _full_sequence(params, tokens, cfg, keep_cache=False)[0]
+def forward(params, tokens, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
+    """Logits (B, S, V) of a full sequence (``train``: plain attention on every
+    device, Mamba2 blocks rematted by ``cfg.remat``)."""
+    return _full_sequence(params, tokens, cfg, keep_cache=False, train=train)[0]
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"})."""
+    logits = forward(params, batch["tokens"], cfg, train=True)
+    return L.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
 def prefill(params, tokens, cfg: ModelConfig):

@@ -1,4 +1,5 @@
-"""Shared model layers: norms, RoPE, GQA attention (plain + blocked), SwiGLU.
+"""Shared model layers: norms, RoPE, GQA attention (plain + blocked), SwiGLU,
+the cross-entropy loss.
 
 The port of the JAX package's ``models/layers.py``: the same functions, the
 same layouts ((B, S, H, hd) activations) and the bf16/fp32 casts at the same
@@ -24,6 +25,7 @@ __all__ = [
     "flash_attention",
     "decode_attention_plain",
     "swiglu",
+    "softmax_cross_entropy",
 ]
 
 NEG_INF = -1e30
@@ -185,3 +187,19 @@ def swiglu(x, w_gate, w_up, w_down):
     g = torch.matmul(x, w_gate)
     u = torch.matmul(x, w_up)
     return torch.matmul(F.silu(g) * u, w_down)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int):
+    """Mean next-token CE; logits (..., V), labels (...) integer.  The padding
+    columns beyond ``vocab`` are masked to ``NEG_INF`` (they get no
+    gradient); the mean is ``sum * fp32(1/n)``, as XLA computes ``jnp.mean``."""
+    logits32 = logits.to(torch.float32)
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    logits32 = logits32.masked_fill(col >= vocab, NEG_INF)
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    return (logz - gold).sum() * (1.0 / logz.numel())

@@ -1,4 +1,4 @@
-"""RWKV-6 "Finch": attention-free LM with data-dependent decay, for serving.
+"""RWKV-6 "Finch": attention-free LM with data-dependent decay.
 
 The port of the JAX package's ``models/rwkv6.py``: the same parameter names,
 shapes and layouts (layer parameters stacked on a leading ``n_layers``
@@ -18,8 +18,11 @@ tensors in ``cfg.chunk_dtype``), ``prefill`` runs
 fp32).  ``decode_step`` applies the recurrence one token at a time against
 the carried state.  What differs from the reference, and why:
 
-* **One card, inference only.** The sharding annotations and remat are
-  dropped; layers run as a Python loop under ``torch.inference_mode()``.
+* **One card.** The sharding annotations are dropped; layers run as a
+  Python loop, the serving entry points under ``torch.inference_mode()``.
+  ``loss_fn`` differentiates the recursive form (``forward``), each layer
+  recomputed in the backward pass with ``cfg.remat``
+  (``transformer.remat``).
 * **Chunks in parallel, the carry alone in sequence.** The reference scans
   chunk by chunk.  Here every chunk's intra-chunk scores, outputs and state
   contribution are computed at once (chunks folded into the batch), and
@@ -41,12 +44,13 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, Specs, normal_init
+from repro_torch.models.transformer import DTYPES, Specs, normal_init, remat, unstack
 
 __all__ = [
     "param_specs",
     "init_params",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "cache_specs",
@@ -300,15 +304,25 @@ def _head(x, rest):
     return torch.matmul(L.rms_norm(x, rest["final_norm"]), rest["lm_head"])
 
 
-def forward(params, tokens, cfg: ModelConfig) -> torch.Tensor:
-    """Logits (B, S, V) of a full sequence, the recursive chunked form."""
+def _block(x, lp, cfg: ModelConfig):
+    x = x + _time_mix(L.rms_norm(x, lp["ln1"]), lp, cfg)
+    return x + _channel_mix(L.rms_norm(x, lp["ln2"]), lp)
+
+
+def forward(params, tokens, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
+    """Logits (B, S, V) of a full sequence, the recursive chunked form
+    (``train``: layers rematted by ``cfg.remat``)."""
     stacked, rest = _split(params)
     x = rest["embed"][tokens]
-    for i in range(cfg.n_layers):
-        lp = _layer_params(stacked, i)
-        x = x + _time_mix(L.rms_norm(x, lp["ln1"]), lp, cfg)
-        x = x + _channel_mix(L.rms_norm(x, lp["ln2"]), lp)
+    for lp in unstack(stacked):
+        x = remat(_block, x, lp, cfg, train=train, cfg=cfg)
     return _head(x, rest)
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"})."""
+    logits = forward(params, batch["tokens"], cfg, train=True)
+    return L.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------

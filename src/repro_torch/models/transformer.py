@@ -1,5 +1,5 @@
 """Dense / MoE / VLM transformer family (yi, qwen3, command-r, mistral-nemo,
-phi3.5-moe, arctic, the internvl2 backbone) for serving.
+phi3.5-moe, arctic, the internvl2 backbone): serving and training.
 
 The port of the JAX package's ``models/transformer.py``: the same parameter
 names, shapes and layouts (layer parameters stacked on a leading
@@ -8,32 +8,42 @@ names, shapes and layouts (layer parameters stacked on a leading
 * **One card.** ``act_constrain`` and the logical-axis sharding annotations
   are dropped; the axes stay in ``param_specs`` as data.
 * **Layers run as a Python loop** over the stacked parameters in place of
-  ``lax.scan``, with no remat: the entry points are inference only and run
-  under ``torch.inference_mode()`` (the training slice brings ``loss_fn``).
-* **Attention on a CUDA tensor always goes to the hand-written kernels**:
-  K4 (``kernels/flash_attn``) in ``forward`` and ``prefill``, K5
+  ``lax.scan``.  The serving entry points run under
+  ``torch.inference_mode()``; ``loss_fn`` runs with gradients on, and with
+  ``cfg.remat`` each layer is recomputed in the backward pass
+  (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+* **Attention on a CUDA tensor goes to the hand-written kernels when
+  serving**: K4 (``kernels/flash_attn``) in ``forward`` and ``prefill``, K5
   (``kernels/decode_attn``) in ``decode_step``.  ``cfg.attention_impl``
   chooses among the plain versions only on the CPU, where ``_choose_attn``
   keeps the reference's meaning ("pallas" takes K4's plain version).
-  ``attend`` and ``decode_attend`` hold this routing for whisper too.
+  **Training (``loss_fn``, ``forward(..., train=True)``) takes the plain
+  version on every device**, as the reference trains through
+  ``_choose_attn``'s plain versions: K4 has no backward, and refuses to
+  run under autograd.  ``attend`` and ``decode_attend`` hold this routing
+  for whisper and zamba2 too.
 * **``decode_step`` writes the new k/v into the cache in place** at
   ``kv_len``, where the reference rebuilds the whole cache with
   ``jnp.where``: the values are identical (a position past the cache is
   written nowhere, as there), and a step does not rewrite the cache (1.6 GB
   for yi-9b at 4 slots x 4096 positions).
-* **The VLM patch branch** (``_full_sequence``, so ``forward`` and
-  ``prefill``) runs the fp32 patch embeddings through the paper's
-  ``PrunedQuantFrontend`` (``core/frontend``: K1 on a CUDA tensor), casts
-  them to the model's dtype, projects them with ``patch_proj`` and puts
-  them before the token embeddings, as the reference does.  RoPE positions
-  and the cache run over all P + S positions; decode goes on at P + S.
+* **The VLM patch branch** (``_full_sequence``, so ``forward``, ``prefill``
+  and ``loss_fn``) runs the fp32 patch embeddings through the paper's
+  ``PrunedQuantFrontend`` (``core/frontend``: K1 on a CUDA tensor; its
+  straight-through output passes the gradient as ``stop_gradient`` does),
+  casts them to the model's dtype, projects them with ``patch_proj`` and
+  puts them before the token embeddings, as the reference does.  RoPE
+  positions and the cache run over all P + S positions; decode goes on at
+  P + S.
 * **MoE** is the reference's capacity-bounded index dispatch, line for
   line: fp32 router, top-k (a stable descending sort, so ties give the
   lower expert first, as ``lax.top_k``), slot positions as an integer
   exclusive cumsum over the flattened (S, K) order of each batch row,
   dropped pairs on the overflow slot ``E*C`` (cut away; the sentinel token
-  ``S`` gathers a zero row), the expert products as ``torch.matmul`` over
-  the expert axis, the combine in the model's dtype.  The capacity
+  ``S`` gathers a zero row, so a dropped pair gets no gradient), the
+  expert products as ``torch.matmul`` over the expert axis, the combine in
+  the model's dtype; the gradient reaches the router through the gates and
+  the experts through the gathers.  The capacity
   ``C = max(int(cf * S * K / E), 1)`` depends on S, so a prefill drops pairs
   that one-token decode steps keep, as in the reference.  Arctic's dense
   residual MLP is ``cfg.moe_dense_residual``.  ``init_params`` draws the
@@ -48,6 +58,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.kernels.decode_attn import ops as decode_ops
@@ -60,6 +71,7 @@ __all__ = [
     "param_specs",
     "init_params",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "cache_specs",
@@ -153,12 +165,13 @@ def normal_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
 # blocks
 # ---------------------------------------------------------------------------
 
-def attend(q, k, v, causal: bool, cpu_attention=L.plain_attention):
-    """Full-sequence attention: K4 on a CUDA tensor; on the CPU
-    ``cpu_attention``, the plain version the reference's model picks."""
-    if q.is_cuda:
+def attend(q, k, v, causal: bool, plain=L.plain_attention, train: bool = False):
+    """Full-sequence attention: K4 on a CUDA tensor; on the CPU, or with
+    ``train`` on any device, ``plain``, the plain version the reference's
+    model picks (and trains through)."""
+    if q.is_cuda and not train:
         return flash_ops.flash_attention(q, k, v, causal=causal)
-    return cpu_attention(q, k, v, causal=causal)
+    return plain(q, k, v, causal=causal)
 
 
 def decode_attend(q, k_cache, v_cache, kv_len):
@@ -168,7 +181,7 @@ def decode_attend(q, k_cache, v_cache, kv_len):
     return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
 
 
-def _attention_block(x, lp, cfg: ModelConfig, rope, cpu_attention):
+def _attention_block(x, lp, cfg: ModelConfig, rope, plain, train: bool):
     """x: (B, S, d); lp: one layer's params (leading axis stripped); rope:
     ``layers.rope_angles`` of the positions."""
     B, S, d = x.shape
@@ -182,7 +195,7 @@ def _attention_block(x, lp, cfg: ModelConfig, rope, cpu_attention):
         k = L.rms_norm(k, lp["k_norm"])
     q = L.rotate(q, *rope)
     k = L.rotate(k, *rope)
-    o = attend(q, k, v, True, cpu_attention)
+    o = attend(q, k, v, True, plain, train)
     o = torch.matmul(o.reshape(B, S, Hq * hd), lp["wo"])
     return x + o, (k, v)
 
@@ -250,8 +263,8 @@ def _mlp(h, lp, cfg: ModelConfig):
     return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
-def _layer(x, lp, cfg: ModelConfig, rope, cpu_attention):
-    x, kv = _attention_block(x, lp, cfg, rope, cpu_attention)
+def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False):
+    x, kv = _attention_block(x, lp, cfg, rope, plain, train)
     return x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg), kv
 
 
@@ -271,8 +284,25 @@ def _layer_params(stacked, i: int):
     return {k: v[i] for k, v in stacked.items()}
 
 
+def unstack(stacked: dict) -> list[dict]:
+    """Every layer's parameter dict, views made by one ``unbind`` a stacked
+    tensor: its backward stacks the layers' gradients once, where indexing a
+    layer at a time adds a full-size zero gradient per layer."""
+    names = list(stacked)
+    return [dict(zip(names, views)) for views in zip(*(stacked[n].unbind(0) for n in names))]
+
+
+def remat(fn, *args, train: bool, cfg: ModelConfig):
+    """``fn(*args)``, recomputed in the backward pass when training with
+    ``cfg.remat`` (the reference's ``jax.checkpoint`` around a block)."""
+    if train and cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
 def _choose_attn(cfg: ModelConfig, seq_len: int):
-    """The plain version the CPU runs (a CUDA tensor always takes K4)."""
+    """The plain version the CPU and training run (serving on a CUDA tensor
+    takes K4)."""
     impl = cfg.attention_impl
     if impl == "auto":
         impl = "flash" if seq_len > 8192 else "plain"
@@ -303,30 +333,42 @@ def _patches(pe, rest, cfg: ModelConfig, dtype):
     return torch.matmul(pe.to(dtype), rest["patch_proj"])
 
 
-def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: bool):
+def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: bool,
+                   train: bool = False):
     stacked, rest = _split_layer_params(params)
     x = rest["embed"][tokens]  # (B, S, d)
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([_patches(patch_embeds, rest, cfg, x.dtype), x], dim=1)
     B, S = x.shape[:2]
     rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
-    cpu_attention = _choose_attn(cfg, S)
+    plain = _choose_attn(cfg, S)
     cache = None
     if keep_cache:
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
         cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
-    for i in range(cfg.n_layers):
-        x, (k, v) = _layer(x, _layer_params(stacked, i), cfg, rope, cpu_attention)
+    for i, lp in enumerate(unstack(stacked)):
+        x, (k, v) = remat(_layer, x, lp, cfg, rope, plain, train, train=train, cfg=cfg)
         if keep_cache:
             cache["k"][i] = k
             cache["v"][i] = v
     return _head(x, rest, cfg), cache
 
 
-def forward(params, tokens, cfg: ModelConfig, patch_embeds=None) -> torch.Tensor:
+def forward(params, tokens, cfg: ModelConfig, patch_embeds=None,
+            train: bool = False) -> torch.Tensor:
     """Logits (B, P + S, V) of a full sequence; tokens (B, S) integer, and for
-    the VLM ``patch_embeds`` (B, P, d) fp32 or None (P = 0)."""
-    return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=False)[0]
+    the VLM ``patch_embeds`` (B, P, d) fp32 or None (P = 0).  ``train``:
+    plain attention on every device, layers rematted by ``cfg.remat``."""
+    return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=False, train=train)[0]
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "labels"}, and
+    "patch_embeds" for the VLM, whose logits are taken after the patches)."""
+    logits = forward(params, batch["tokens"], cfg, batch.get("patch_embeds"), train=True)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
+    return L.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
 def prefill(params, tokens, cfg: ModelConfig, patch_embeds=None):

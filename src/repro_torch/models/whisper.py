@@ -1,4 +1,4 @@
-"""Whisper-medium backbone for serving: encoder-decoder transformer.
+"""Whisper-medium backbone: encoder-decoder transformer, served and trained.
 
 The port of the JAX package's ``models/whisper.py``: the same parameter
 names, shapes and layouts (layer parameters stacked on a leading axis), the
@@ -10,17 +10,23 @@ encoder, learned positions on the decoder (``max_target_len``), tanh-GELU
 MLPs (``jax.nn.gelu``'s default), cross-attention K/V precomputed once for
 decode.  What differs from the reference, and why:
 
-* **One card, inference only.** The sharding annotations and remat are
-  dropped; layers run as a Python loop; the entry points run under
+* **One card.** The sharding annotations are dropped; layers run as a
+  Python loop; the serving entry points run under
   ``torch.inference_mode()`` (``decode_train`` is the teacher-forced
-  full-sequence decoder, used here to check the decode steps).
-* **Attention on a CUDA tensor always goes to the hand-written kernels**:
+  full-sequence decoder, used there to check the decode steps).
+  ``loss_fn`` (``encode`` + ``decode_train`` with ``train``) runs with
+  gradients on, each block recomputed in the backward pass with
+  ``cfg.remat``; K1 still digitises the frames once, and its
+  straight-through output passes the gradient as ``stop_gradient`` does.
+* **Attention on a CUDA tensor goes to the hand-written kernels when
+  serving**:
   K4 (``kernels/flash_attn``) in ``encode`` (non-causal) and in
   ``decode_train`` (causal self-attention, non-causal cross-attention); K5
   (``kernels/decode_attn``) in ``decode_step``, for self-attention and for
   cross-attention over all Te encoder positions, through
-  ``transformer.attend`` and ``transformer.decode_attend``.  On the CPU the
-  plain versions the reference picks run.
+  ``transformer.attend`` and ``transformer.decode_attend``.  On the CPU,
+  and in training on every device, the plain versions the reference picks
+  run.
 * **``decode_step`` writes the new k/v into the self cache in place** at
   ``kv_len``, and nothing at or past ``max_target_len``, as the reference's
   where-update; the decoder position is clamped at ``max_target_len - 1``.
@@ -37,13 +43,14 @@ from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, Specs
+from repro_torch.models.transformer import DTYPES, Specs, remat
 
 __all__ = [
     "param_specs",
     "init_params",
     "encode",
     "decode_train",
+    "loss_fn",
     "cache_specs",
     "build_cross_cache",
     "decode_step",
@@ -129,21 +136,35 @@ def _layer(params, prefix: str, i: int, keys=_BLOCK) -> dict[str, torch.Tensor]:
     return {k: params[f"{prefix}_{k}"][i] for k in keys}
 
 
-def _attend(q, k, v, causal: bool):
-    """Full-sequence attention; on the CPU the reference's choice (the plain
-    version; the blocked scan for non-causal attention over more than 8192
-    keys)."""
+def _attend(q, k, v, causal: bool, train: bool = False):
+    """Full-sequence attention; on the CPU, or with ``train``, the reference's
+    choice (the plain version; the blocked scan for non-causal attention
+    over more than 8192 keys)."""
     if not causal and k.shape[1] > 8192:
-        return T.attend(q, k, v, causal, L.flash_attention)
-    return T.attend(q, k, v, causal)
+        return T.attend(q, k, v, causal, L.flash_attention, train)
+    return T.attend(q, k, v, causal, train=train)
 
 
 def _heads(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.n_heads, cfg.n_kv_heads, cfg.d_model // cfg.n_heads
 
 
-def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
-    """frames: (B, T, d) fp32 stub embeddings in [0, 1) -> (B, T, d) states."""
+def _enc_block(x, lp, cfg: ModelConfig, train: bool):
+    B, S, _ = x.shape
+    H, Hkv, hd = _heads(cfg)
+    h = L.rms_norm(x, lp["ln1"])
+    q = torch.matmul(h, lp["wq"]).reshape(B, S, H, hd)
+    k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
+    v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
+    o = _attend(q, k, v, causal=False, train=train)
+    x = x + torch.matmul(o.reshape(B, S, H * hd), lp["wo"])
+    return x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
+
+
+def encode(params, frames, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
+    """frames: (B, T, d) fp32 stub embeddings in [0, 1) -> (B, T, d) states
+    (``train``: plain attention on every device, blocks rematted by
+    ``cfg.remat``)."""
     x = frames
     if cfg.use_pruned_frontend:
         fe = PrunedQuantFrontend(FrontendConfig(cfg.d_model, cfg.frontend_adc_bits))
@@ -151,16 +172,8 @@ def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
     x = x.to(params["embed"].dtype)
     B, T, d = x.shape
     x = x + _sinusoid(T, d, x.dtype, x.device)
-    H, Hkv, hd = _heads(cfg)
     for i in range(cfg.encoder_layers):
-        lp = _layer(params, "enc", i)
-        h = L.rms_norm(x, lp["ln1"])
-        q = torch.matmul(h, lp["wq"]).reshape(B, T, H, hd)
-        k = torch.matmul(h, lp["wk"]).reshape(B, T, Hkv, hd)
-        v = torch.matmul(h, lp["wv"]).reshape(B, T, Hkv, hd)
-        o = _attend(q, k, v, causal=False)
-        x = x + torch.matmul(o.reshape(B, T, H * hd), lp["wo"])
-        x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
+        x = remat(_enc_block, x, _layer(params, "enc", i), cfg, train, train=train, cfg=cfg)
     return L.rms_norm(x, params["enc_final_norm"])
 
 
@@ -172,29 +185,45 @@ def _cross_kv(enc_states, lx, cfg: ModelConfig):
     return k, v
 
 
-def decode_train(params, tokens, enc_states, cfg: ModelConfig) -> torch.Tensor:
-    """Teacher-forced decoder over (B, S <= max_target_len) tokens -> logits (B, S, V)."""
-    B, S = tokens.shape
+def _dec_block(x, lp, lx, enc_states, cfg: ModelConfig, train: bool):
+    B, S, _ = x.shape
     H, Hkv, hd = _heads(cfg)
+    h = L.rms_norm(x, lp["ln1"])
+    q = torch.matmul(h, lp["wq"]).reshape(B, S, H, hd)
+    k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
+    v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
+    o = _attend(q, k, v, causal=True, train=train)
+    x = x + torch.matmul(o.reshape(B, S, H * hd), lp["wo"])
+    # cross-attention
+    hc = L.rms_norm(x, lx["ln"])
+    qc = torch.matmul(hc, lx["wq"]).reshape(B, S, H, hd)
+    kc, vc = _cross_kv(enc_states, lx, cfg)
+    oc = _attend(qc, kc, vc, causal=False, train=train)
+    x = x + torch.matmul(oc.reshape(B, S, H * hd), lx["wo"])
+    return x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
+
+
+def decode_train(params, tokens, enc_states, cfg: ModelConfig,
+                 train: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder over (B, S <= max_target_len) tokens -> logits
+    (B, S, V) (``train``: plain attention on every device, blocks rematted
+    by ``cfg.remat``)."""
+    S = tokens.shape[1]
     x = params["embed"][tokens] + params["pos_dec"][:S]
     for i in range(cfg.n_layers):
         lp = _layer(params, "dec", i)
         lx = _layer(params, "x", i, ("ln", "wq", "wk", "wv", "wo"))
-        h = L.rms_norm(x, lp["ln1"])
-        q = torch.matmul(h, lp["wq"]).reshape(B, S, H, hd)
-        k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
-        v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
-        o = _attend(q, k, v, causal=True)
-        x = x + torch.matmul(o.reshape(B, S, H * hd), lp["wo"])
-        # cross-attention
-        hc = L.rms_norm(x, lx["ln"])
-        qc = torch.matmul(hc, lx["wq"]).reshape(B, S, H, hd)
-        kc, vc = _cross_kv(enc_states, lx, cfg)
-        oc = _attend(qc, kc, vc, causal=False)
-        x = x + torch.matmul(oc.reshape(B, S, H * hd), lx["wo"])
-        x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
+        x = remat(_dec_block, x, lp, lx, enc_states, cfg, train, train=train, cfg=cfg)
     x = L.rms_norm(x, params["final_norm"])
     return torch.matmul(x, params["lm_head"])
+
+
+def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` ({"frames", "tokens",
+    "labels"}): ``encode`` of the frames, the teacher-forced decoder."""
+    enc = encode(params, batch["frames"], cfg, train=True)
+    logits = decode_train(params, batch["tokens"], enc, cfg, train=True)
+    return L.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, enc_len: int) -> Specs:

@@ -1,5 +1,6 @@
-"""Runtime policies: failure injection, the straggler watchdog, elastic runs, and the
-evaluation service's admission control and deadlines."""
+"""Runtime policies: failure injection, the straggler watchdog, elastic runs (the
+mesh shape, GA campaigns), and the evaluation service's admission control and
+deadlines."""
 
 from repro_torch.runtime.admission import (  # noqa: F401
     AdmissionConfig,
@@ -7,6 +8,10 @@ from repro_torch.runtime.admission import (  # noqa: F401
     AdmissionError,
     RequestWatchdog,
 )
-from repro_torch.runtime.elastic import DrillConfig, ElasticGARunner  # noqa: F401
+from repro_torch.runtime.elastic import (  # noqa: F401
+    DrillConfig,
+    ElasticGARunner,
+    choose_mesh_shape,
+)
 from repro_torch.runtime.failure import FailureInjector  # noqa: F401
 from repro_torch.runtime.straggler import StragglerWatchdog  # noqa: F401

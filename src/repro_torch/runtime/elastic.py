@@ -1,5 +1,10 @@
-"""Elastic GA campaigns: boundary snapshots, rollback and recovery (port of the GA half
-of ``repro.runtime.elastic``).
+"""Elastic runs: the mesh shape a device pool takes, and elastic GA campaigns with
+boundary snapshots, rollback and recovery (port of ``repro.runtime.elastic``
+but its ``ElasticRunner``).
+
+:func:`choose_mesh_shape` is the reference's arithmetic: the largest
+(pod?, data, model) mesh that fits a device count.  On one card it gives
+``(1, 1)``; ``launch/train`` asks it as the reference's ``train.run`` does.
 
 :class:`ElasticGARunner` wraps an NSGA-II driver (``core.nsga2.NSGA2`` /
 ``IslandNSGA2``) whose run loop fires a ``checkpoint_hook`` at every
@@ -14,19 +19,59 @@ Everything committed before the crash replays as a memo hit, so recovery
 trains zero duplicate rows.  :class:`DrillConfig` carries the chaos-drill
 knobs and the row telemetry.
 
-The LM half of the reference's module (``ElasticRunner``,
-``choose_mesh_shape``) waits for ROADMAP Queue 1 item 14.
+The reference's ``ElasticRunner`` (re-mesh and restore an LM run) waits
+for ``parallel/`` (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import warnings
 from typing import Callable
 
 from repro_torch.runtime.failure import DeviceLossError, FailureInjector
 from repro_torch.runtime.straggler import StragglerWatchdog
 
-__all__ = ["DrillConfig", "ElasticGARunner"]
+__all__ = ["choose_mesh_shape", "DrillConfig", "ElasticGARunner"]
+
+
+def choose_mesh_shape(
+    n_devices: int, model_parallel: int, devices_per_pod: int | None = None
+) -> tuple[int, ...]:
+    """Largest (pod?, data, model) mesh that fits ``n_devices``.
+
+    Keeps the model axis fixed (TP degree is a property of the model fit —
+    it must stay inside a pod's interconnect domain), shrinks data
+    parallelism to the largest divisor.  A ``pod`` axis is only emitted when
+    >= 2 *whole* pods survive AND the pod factoring uses at least as many
+    devices as the flat one (20 devices, 8/pod, TP=2: (2, 4, 2) = 16 loses
+    to flat (10, 2) = 20), as does a ``devices_per_pod`` not divisible by
+    ``model_parallel``.  Whenever the chosen shape uses fewer than
+    ``n_devices``, the dropped device indices are named in a warning.
+    Raises if even one model-parallel group does not fit.
+    """
+    if n_devices < model_parallel:
+        raise ValueError(
+            f"need >= {model_parallel} devices for TP={model_parallel}, have {n_devices}"
+        )
+    shape: tuple[int, ...] = (n_devices // model_parallel, model_parallel)
+    if devices_per_pod and n_devices >= 2 * devices_per_pod:
+        pods = n_devices // devices_per_pod
+        data_per_pod = devices_per_pod // model_parallel
+        if data_per_pod >= 1:
+            pod_shape = (pods, data_per_pod, model_parallel)
+            if math.prod(pod_shape) >= math.prod(shape):
+                shape = pod_shape
+    used = math.prod(shape)
+    if used != n_devices:
+        warnings.warn(
+            f"choose_mesh_shape: {n_devices} devices do not factor into "
+            f"shape {shape}; using the first {used} and dropping devices "
+            f"[{used}..{n_devices - 1}]",
+            stacklevel=2,
+        )
+    return shape
 
 
 @dataclasses.dataclass
