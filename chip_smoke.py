@@ -24,6 +24,9 @@
     python3 chip_smoke.py --train     # build, then phases 18-22 only (LM training; with
                                       # --profile, a full-width step profiled), and
                                       # stop: no result lines
+    python3 chip_smoke.py --mesh      # build, then phases 23-28 only (the multi-device
+                                      # layer on the card's 1-rank mesh, the dry run),
+                                      # and stop: no result lines
     python3 chip_smoke.py --families  # build, then phases 11b and 15-17 only (the MoE,
                                       # RWKV-6 and Zamba2 families; with --profile,
                                       # profiled), and stop: no result lines
@@ -40,6 +43,11 @@
                                       # bit-equal), co-design training steps with
                                       # either K2/K3 and whisper-medium's encode with
                                       # either K1; no result lines
+    python3 chip_smoke.py --phase-times DIR [DIR ...]
+                                      # the plain run of each checkout in turn
+                                      # (e.g. parent, this, this, parent), each
+                                      # line timed as it arrives: seconds a phase
+                                      # per run; logs in results/phase_times/
 
 Phases, one JSON line each; any failure ends the run with a nonzero exit:
 
@@ -232,6 +240,39 @@ Phases 15-17 run after phase 14.
                 checkpoint and a second from the same one: the same losses
                 bit for bit.
 Phases 18-22 run after phase 17.
+23. mesh_codesign
+                the population and island evaluators on the card's device grid
+                (``population_mesh()``: (1,); ``island_mesh(3)``: (1, 1)) against
+                ``mesh=None`` (the one-card grid ``device`` gives): cardio at
+                full width, 24 rows (islands of 8, 5 and 11), 600 steps; the
+                accuracies bit-equal and the K2/K3 launches equal (each call
+                counted alone).
+24. plan_serve  yi-9b at full width and depth in bf16: the plan's
+                ``prefill_step`` (B = 1, 4096 tokens) and ``serve_step`` (B = 4
+                against a 4096-long cache) of ``launch.steps.build_plan`` on a
+                1-rank ``make_mesh((1, 1))`` inside ``activation_mesh``: logits
+                and caches bit-equal to the model's ``prefill`` and
+                ``decode_step``, K4 48 (tensor-core variant) and K5 48 launched;
+                then both steps on DTensor parameters, inputs and caches (the
+                prefill at B = 2): K4 48 and K5 48 again, the model's bits;
+                each step's card time (CUDA events) beside its ``op_cost``
+                count at the same shapes (a host count of the plain versions'
+                work) with each layer's plain attention replaced by the
+                kernel's own work (K4: the causal pairs), the achieved FLOP/s
+                against the bf16 peak and bytes/s against HBM3.
+25. plan_train  the ``op_cost`` count of train_slice's step (yi-9b, 8 layers, B =
+                2 x 4096, remat) beside 6·N·D, and the bf16-peak share this run's
+                train_slice time and PR 21's give under each count.
+26. elastic_drill
+                ``ElasticRunner.drill`` on yi-100m: save, recover onto (1, 1),
+                step on; the losses equal an uninterrupted run's bit for bit.
+27. pipeline    ``pipeline_apply`` on a 1-rank ``stage`` group at the reference
+                test's shapes, bit-equal to the sequential composition.
+28. dryrun      ``python -m repro_torch.launch.dryrun --arch yi-9b --mesh single``
+                in a subprocess (host only, started with phase 23, 180 s limit):
+                its four cells (three run, long_500k skipped) with per-device
+                counts; a failure fails the run.
+Phases 23-28 run after phase 22.
 
 Last, ``capture_fails``: a capture made to read a value back to the host
 raises, caches no graph and falls back to nothing.  The last three lines
@@ -3433,7 +3474,7 @@ def phase_train_slice(torch, profile: bool = False):
          launches=launches, checks=checks, ok=all(checks.values()))
     if not all(checks.values()):
         raise SystemExit(f"train_slice checks failed: {checks}")
-    return ef_room
+    return ef_room, steady_ms
 
 
 def phase_train_lm(torch, int8_ef: bool):
@@ -3511,13 +3552,491 @@ def phase_train_lm(torch, int8_ef: bool):
         raise SystemExit(f"train_lm checks failed: {checks}")
 
 
-def phase_train(torch, profile: bool = False) -> None:
-    """Phases 18-22: LM training."""
+def phase_train(torch, profile: bool = False) -> float:
+    """Phases 18-22: LM training; returns train_slice's median step time (ms)."""
     phase_train_guard(torch)
     phase_optim(torch)
     phase_train_parity(torch)
-    full_width_ef = phase_train_slice(torch, profile=profile)
+    full_width_ef, step_ms = phase_train_slice(torch, profile=profile)
     phase_train_lm(torch, int8_ef=not full_width_ef)
+    return step_ms
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on one card: grids, plans, elastic, pipeline, dry run
+# ---------------------------------------------------------------------------
+
+MESH_ISLAND_SIZES = (8, 5, 11)  # rows of the three islands of mesh_codesign's island call
+PLAN_PREFILL = (1, 4096)        # B, tokens of plan_serve's prefill_step
+PLAN_DECODE = (4, 4096)         # B, cache positions of plan_serve's serve_step
+PLAN_DECODE_STEPS = 16          # serve_steps timed
+# B, tokens of plan_serve's DTensor prefill: DTensor cannot reshape a batch
+# of 1 sharded over a mesh dim of size 1, so the DTensor route takes 2 rows
+PLAN_DTENSOR_PREFILL = (2, 4096)
+PR21_TRAIN_STEP_MS = 1179.2     # yi-9b 8 layers, B 2 x 4096: PR 21's measured step (PERF.md)
+ELASTIC_STEPS, ELASTIC_DRILL_AT = 6, 3
+PIPELINE_SHAPE = dict(n_stages=4, n_micro=4, mb=2, d=16)  # tests/test_distributed.py:33-55
+DRYRUN_TIMEOUT_S = 180
+
+
+def phase_mesh_codesign(torch) -> dict:
+    """The population and island evaluators on the card's grid
+    (``population_mesh()``, ``island_mesh(3)``: one card gives (1,) and
+    (1, 1)) against ``mesh=None``: the same accuracies bit for bit, and the
+    same K2/K3 launches; cardio at full width, pop 24, 600 steps."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.printed_mlp import codesign_config
+    from repro_torch.core import qat, trainer
+    from repro_torch.kernels.fused_qat import ops
+    from repro_torch.parallel import sharding as shd
+
+    (X_tr, y_tr, X_te, y_te), sizes = _cardio()
+    ccfg = codesign_config("cardio", full=True)
+    ecfg = trainer.EvalConfig(max_steps=ccfg.max_steps)
+    mcfg = qat.MLPConfig(sizes)
+    rows, seeds = _cardio_rows(sum(MESH_ISLAND_SIZES), seed=23)
+    rows = tuple(rows) + (seeds,)
+    cut = np.cumsum((0,) + MESH_ISLAND_SIZES)
+    batches = [tuple(a[cut[i]:cut[i + 1]] for a in rows) for i in range(3)]
+    data = (X_tr, y_tr, X_te, y_te, mcfg, ecfg)
+    out, launches = {}, {}
+    total = {k: 0 for k in ops.LAUNCHES}
+    for name, make in (
+            ("population_none", lambda: trainer.make_population_evaluator(*data, device="cuda")),
+            ("population_grid", lambda: trainer.make_population_evaluator(
+                *data, mesh=shd.population_mesh())),
+            ("islands_none", lambda: trainer.make_island_evaluator(*data, 3, device="cuda")),
+            ("islands_grid", lambda: trainer.make_island_evaluator(
+                *data, 3, mesh=shd.island_mesh(3)))):
+        ev = make()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = ev(batches) if name.startswith("islands") else ev(*rows)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = dict(ops.LAUNCHES)
+        for k, v in ops.LAUNCHES.items():
+            total[k] += v
+        out[name] = {"acc": (np.concatenate(res) if isinstance(res, list) else res).tolist(),
+                     "seconds": seconds, "stats": dict(ev.stats.items()),
+                     "grid": list(ev.mesh.dims)}
+    checks = {
+        "population_bit_equal": out["population_grid"]["acc"] == out["population_none"]["acc"],
+        "islands_bit_equal": out["islands_grid"]["acc"] == out["islands_none"]["acc"],
+        "island_rows_are_population_rows": out["islands_none"]["acc"]
+        == out["population_none"]["acc"],
+        "population_launches_equal": launches["population_grid"]
+        == launches["population_none"],
+        "islands_launches_equal": launches["islands_grid"] == launches["islands_none"],
+        "grids_one_card": out["population_grid"]["grid"] == [1]
+        and out["islands_grid"]["grid"] == [1, 1],
+        "launched": all(v > 0 for v in total.values()),
+        "acc_finite": bool(np.isfinite(out["population_grid"]["acc"]).all()),
+    }
+    emit("mesh_codesign", dataset="cardio", rows=len(seeds), island_sizes=MESH_ISLAND_SIZES,
+         max_steps=ecfg.max_steps, runs=out, launches=launches, checks=checks,
+         ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"mesh_codesign checks failed: {checks}")
+    return total
+
+
+def _share(flops: float, nbytes: float, ms: float) -> dict:
+    """Achieved rates of ``flops`` and ``nbytes`` (host counts) in ``ms`` of
+    card time, against the bf16 peak and HBM3."""
+    s = ms / 1e3
+    return {"flop_per_s": flops / s, "bf16_peak_share": flops / s / BF16_FLOPS,
+            "bytes_per_s": nbytes / s, "hbm_share": nbytes / s / HBM_BYTES_PER_S,
+            "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3}
+
+
+def _attention_credit(torch, cfg, prefill: tuple, decode: tuple) -> dict:
+    """Per layer, for plan_serve's two steps: op_cost's count of the plain
+    attention the trace runs in the kernel's place (traced alone on fake
+    tensors at the step's shapes) and the kernel's own work there.  K4: the
+    two products over the causal (query, key) pairs, and q, k, v and o
+    moved once; K5: the two products over the positions each row reads
+    (its kv_len + 1, the whole cache in this run), and q, those cache rows,
+    kv_len and o moved once."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import op_cost
+    from repro_torch.models import layers as L
+
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    dt = getattr(torch, cfg.dtype)
+    elt = torch.empty((), dtype=dt).element_size()
+    (Bp, Sp), (Bd, Sd) = prefill, decode
+    plain = {}
+    with FakeTensorMode():
+        for name, fn, args in (
+                ("prefill", lambda q, k: L.plain_attention(q, k, k, causal=True),
+                 (torch.empty(Bp, Sp, Hq, hd, dtype=dt), torch.empty(Bp, Sp, Hkv, hd, dtype=dt))),
+                ("decode", lambda q, k: L.decode_attention_plain(
+                    q, k, k, torch.full((Bd,), Sd, dtype=torch.int32)),
+                 (torch.empty(Bd, Hq, hd, dtype=dt), torch.empty(Bd, Sd, Hkv, hd, dtype=dt)))):
+            counter = op_cost.OpCounter()
+            with counter:
+                fn(*args)
+            plain[name] = {"flops": counter.costs.flops, "hbm_bytes": counter.costs.hbm_bytes}
+    own = {
+        "prefill": {"flops": 4.0 * hd * Hq * Bp * Sp * (Sp + 1) / 2,
+                    "hbm_bytes": float(elt * Bp * Sp * hd * (2 * Hq + 2 * Hkv))},
+        "decode": {"flops": 4.0 * hd * Hq * Bd * Sd,
+                   "hbm_bytes": float(elt * (2 * Bd * Hq * hd + 2 * Bd * Sd * Hkv * hd)
+                                      + 4 * Bd)},
+    }
+    return {step: {"plain_per_layer": plain[step], "kernel_per_layer": own[step]}
+            for step in ("prefill", "decode")}
+
+
+def _credited(cost, credit: dict, n_layers: int) -> dict:
+    """``cost`` (a step's op_cost count) with each layer's plain attention
+    replaced by the kernel's own work."""
+    return {k: getattr(cost, k) + n_layers * (credit["kernel_per_layer"][k]
+                                              - credit["plain_per_layer"][k])
+            for k in ("flops", "hbm_bytes")}
+
+
+def _event_ms(torch, fn, n: int) -> float:
+    """Mean card time of ``fn()`` over n calls, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase_plan_serve(torch, mesh) -> dict:
+    """yi-9b at full width and depth in bf16 (random weights from seed 0, as
+    lm_slice draws them): the plan's ``prefill_step`` (B = 1, 4096 tokens)
+    and ``serve_step`` (B = 4 against a 4096-long cache) on the 1-rank
+    ``make_mesh((1, 1))`` inside ``activation_mesh``, bit-equal to the
+    model's ``prefill`` and ``decode_step`` (``launch/serve``'s calls); K4
+    and K5 counted on that run alone.  Then the same two steps on DTensor
+    parameters, inputs and caches laid out by the plans' placements
+    (wrapped without a copy; the prefill at PLAN_DTENSOR_PREFILL), whose
+    local shards must take K4 and K5 too (``parallel.local``), with the
+    bits of the model's own calls.  Each step's card time
+    beside its op_cost count at the same shapes (traced on fake tensors on
+    the host), in which each layer's plain attention is replaced by the
+    kernel's own work before the roofline shares are taken."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.flash_attn import ops as fops
+    from repro_torch.launch import shapes, steps
+    from repro_torch.models import build_model, init_cache
+    from repro_torch.parallel import sharding as shd
+
+    def _wrap(t, sh):
+        return DTensor.from_local(t, mesh, list(sh.placements), run_check=False)
+
+    def _full(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    started = time.perf_counter()
+    _free_device(torch)
+    cfg = registry.get("yi-9b")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    Bp, Sp = PLAN_PREFILL
+    Bd, Sd = PLAN_DECODE
+    plan_p = steps.build_plan(cfg, "prefill_32k", mesh,
+                              shape=shapes.ShapeSpec("prefill_32k", "prefill", Sp, Bp))
+    plan_d = steps.build_plan(cfg, "decode_32k", mesh,
+                              shape=shapes.ShapeSpec("decode_32k", "decode", Sd, Bd))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (Bp, Sp), device="cuda", generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (Bd,), device="cuda", generator=gen)
+    kv_len = torch.full((Bd,), Sd - 1, dtype=torch.int32, device="cuda")
+    cache = init_cache(model, Bd, Sd, "cuda")
+    for t in cache.values():
+        t.normal_(generator=gen)
+    tokens2 = torch.randint(0, cfg.vocab_size, PLAN_DTENSOR_PREFILL, device="cuda",
+                            generator=gen)
+    plan_p2 = steps.build_plan(cfg, "prefill_32k", mesh, shape=shapes.ShapeSpec(
+        "prefill_32k", "prefill", PLAN_DTENSOR_PREFILL[1], PLAN_DTENSOR_PREFILL[0]))
+    with torch.inference_mode():
+        # -- the main path: counts set to 0 just before, read just after
+        fops.reset_launch_counts()
+        dops.reset_launch_counts()
+        with shd.activation_mesh(mesh):
+            logits_p, cache_p = plan_p.step_fn(params, {"tokens": tokens})
+            c_plan = {k: v.clone() for k, v in cache.items()}
+            logits_d, c_plan, kv_next = plan_d.step_fn(params, tok, c_plan, kv_len)
+        torch.cuda.synchronize()
+        launches = {**fops.LAUNCHES, **dops.LAUNCHES}
+        ref_p, ref_cache_p = model.prefill(params, tokens)
+        c_ref = {k: v.clone() for k, v in cache.items()}
+        ref_d, c_ref = model.decode_step(params, tok, c_ref, kv_len)
+        equal = {
+            "prefill_logits": bool(torch.equal(logits_p, ref_p)),
+            "prefill_cache": all(torch.equal(cache_p[k], ref_cache_p[k]) for k in ref_cache_p),
+            "decode_logits": bool(torch.equal(logits_d, ref_d)),
+            "decode_cache": all(torch.equal(c_plan[k], c_ref[k]) for k in c_ref),
+            "kv_len_next": bool(torch.equal(kv_next, kv_len + 1)),
+        }
+        finite = bool(torch.isfinite(logits_p).all() and torch.isfinite(logits_d).all())
+        del logits_p, cache_p, ref_p, ref_cache_p, c_ref
+        ref_p2, ref_cache_p2 = model.prefill(params, tokens2)
+    # -- the DTensor route of the same steps: counts set to 0 just before, read just after
+    fops.reset_launch_counts()
+    dops.reset_launch_counts()
+    with torch.no_grad(), shd.activation_mesh(mesh), implicit_replication():
+        dparams = {k: _wrap(v, plan_p.in_shardings[0][k]) for k, v in params.items()}
+        dl_p, dc_p = plan_p2.step_fn(dparams, {"tokens": _wrap(
+            tokens2, plan_p2.in_shardings[1]["tokens"])})
+        _, sh_tok, sh_cache, sh_len = plan_d.in_shardings
+        dc_d = {k: _wrap(v.clone(), sh_cache[k]) for k, v in cache.items()}
+        dl_d, dc_d, dkv = plan_d.step_fn(dparams, _wrap(tok, sh_tok), dc_d,
+                                         _wrap(kv_len, sh_len))
+        torch.cuda.synchronize()
+        dt_launches = {**fops.LAUNCHES, **dops.LAUNCHES}
+        dt_out = {"prefill_logits": (_full(dl_p), ref_p2),
+                  "decode_logits": (_full(dl_d), logits_d)}
+        dt_out.update({f"prefill_cache_{k}": (_full(dc_p[k]), ref_cache_p2[k]) for k in dc_p})
+        dt_out.update({f"decode_cache_{k}": (_full(dc_d[k]), c_plan[k]) for k in dc_d})
+        dt_err = {k: (a.float() - b.float()).abs().max().item() for k, (a, b) in dt_out.items()}
+        dt_equal = all(torch.equal(a, b) for a, b in dt_out.values()) and bool(
+            torch.equal(_full(dkv), kv_len + 1))
+    del dparams, dl_p, dc_p, dc_d, dl_d, dt_out, ref_p2, ref_cache_p2
+    with torch.inference_mode(), shd.activation_mesh(mesh):
+        prefill_ms = _event_ms(torch, lambda: plan_p.step_fn(params, {"tokens": tokens}), 3)
+        decode_ms = _event_ms(torch, lambda: plan_d.step_fn(params, tok, c_plan, kv_len),
+                              PLAN_DECODE_STEPS)
+    del params, c_plan, cache
+    t0 = time.perf_counter()
+    cost_p = steps.lower_plan(plan_p, mesh)
+    cost_d = steps.lower_plan(plan_d, mesh)
+    credit = _attention_credit(torch, cfg, PLAN_PREFILL, PLAN_DECODE)
+    trace_s = time.perf_counter() - t0
+    own_p = _credited(cost_p, credit["prefill"], cfg.n_layers)
+    own_d = _credited(cost_d, credit["decode"], cfg.n_layers)
+    want = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers}
+    want.update(k4_variants(cfg.n_layers))
+    checks = {**{f"{k}_bit_equal": v for k, v in equal.items()}, "finite": finite,
+              "launch_counts": launches == want,
+              "dtensor_launch_counts": dt_launches == want, "dtensor_bit_equal": dt_equal}
+    emit("plan_serve", arch=cfg.name, dtype=cfg.dtype, n_layers=cfg.n_layers,
+         mesh=list(mesh.shape),
+         prefill=dict(B=Bp, tokens=Sp, ms=prefill_ms, counts=cost_p.as_dict(),
+                      credit=credit["prefill"], counts_with_kernel=own_p,
+                      **_share(own_p["flops"], own_p["hbm_bytes"], prefill_ms)),
+         decode=dict(B=Bd, cache=Sd, ms=decode_ms, counts=cost_d.as_dict(),
+                     credit=credit["decode"], counts_with_kernel=own_d,
+                     **_share(own_d["flops"], own_d["hbm_bytes"], decode_ms)),
+         counted_by="launch/op_cost.py on fake tensors on the host (the plain versions' "
+                    "work: K4 as the full S x S scores); shares and bound_ms from "
+                    "counts_with_kernel, in which each layer's plain attention is replaced "
+                    "by the kernel's own work (K4's causal pairs)",
+         trace_s=trace_s, launches=launches, expected_launches=want,
+         dtensor=dict(launches=dt_launches, max_abs_err=dt_err, equal=dt_equal),
+         seconds=time.perf_counter() - started, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"plan_serve checks failed: {checks}")
+    return {k: launches[k] + dt_launches[k] for k in launches}
+
+
+def phase_plan_train(torch, mesh, step_ms: float | None) -> None:
+    """The op_cost count of train_slice's step (yi-9b at TRAIN_SLICE_LAYERS
+    layers, B x S = TRAIN_SLICE_SHAPE, AdamW, remat) beside 6·N·D, and the
+    bf16-peak share each gives with this run's train_slice step time (when
+    it ran) and PR 21's; no second full-width step."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import shapes, steps
+    from repro_torch.models import exact_n_params
+
+    B, S = TRAIN_SLICE_SHAPE
+    cfg = dataclasses.replace(registry.get("yi-9b"), n_layers=TRAIN_SLICE_LAYERS)
+    plan = steps.build_plan(cfg, "train_4k", mesh,
+                            shape=shapes.ShapeSpec("train_4k", "train", S, B))
+    t0 = time.perf_counter()
+    cost = steps.lower_plan(plan, mesh)
+    trace_s = time.perf_counter() - t0
+    six_nd = 6 * exact_n_params(cfg) * B * S
+    times = {"pr21": PR21_TRAIN_STEP_MS}
+    if step_ms is not None:
+        times["this_run"] = step_ms
+    shares = {name: {"op_cost": cost.flops / (ms / 1e3) / BF16_FLOPS,
+                     "six_nd": six_nd / (ms / 1e3) / BF16_FLOPS} for name, ms in times.items()}
+    checks = {"counted": cost.flops > six_nd > 0, "no_collectives": cost.collective_total == 0}
+    emit("plan_train", arch=cfg.name, n_layers=cfg.n_layers, global_batch=B, seq_len=S,
+         counts=cost.as_dict(), six_nd=six_nd, op_cost_over_six_nd=cost.flops / six_nd,
+         step_ms=times, bf16_peak_share=shares, trace_s=trace_s,
+         counted_by="launch/op_cost.py on fake tensors on the host (plain attention: fp32 "
+                    "S x S score GEMMs, remat's recompute included)",
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"plan_train checks failed: {checks}")
+
+
+def phase_elastic_drill(torch) -> None:
+    """``ElasticRunner.drill`` on yi-100m (fp32, B 4, S 128): ELASTIC_STEPS
+    steps with a drill after ELASTIC_DRILL_AT (save, recover onto (1, 1),
+    go on from the restored state); the losses equal an uninterrupted run's
+    bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.tokens import TokenConfig, TokenStream
+    from repro_torch.launch import steps, train, train_lm
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.elastic import ElasticRunner
+
+    started = time.perf_counter()
+    cfg = train_lm.hundred_m_config()
+    tcfg = train.TrainConfig(arch=cfg.name, reduced=False, global_batch=4, seq_len=128)
+    model, opt, init_fn, step = train.build_train_state(cfg)
+    stream = TokenStream(TokenConfig(cfg.vocab_size, 128, 4, 0))
+
+    def run(params, opt_state, first, n):
+        losses = []
+        for i in range(first, first + n):
+            batch = train.step_batch(stream, i, cfg, tcfg, "cuda")
+            params, opt_state, _, loss, _ = step(params, opt_state, None, batch)
+            losses.append(float(loss))
+        return params, opt_state, losses
+
+    init = lambda: init_fn(torch.Generator(device="cuda").manual_seed(0))  # noqa: E731
+    _, _, straight = run(*init(), 0, ELASTIC_STEPS)
+
+    def shardings(mesh):
+        psh = train.param_shardings(cfg, mesh)
+        osh = steps.opt_state_shardings(opt, steps.specs_to_structs(model.param_specs()),
+                                        psh, mesh)
+        return {"params": psh, **{f"opt_{f}": s for f, s in zip(osh._fields, osh)}}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = ElasticRunner(ckpt=CheckpointManager(tmp), model_parallel=1,
+                               make_mesh=lambda shape: make_mesh(shape, "cuda"),
+                               make_shardings=shardings, build_step=lambda mesh: step)
+        params, opt_state, before = run(*init(), 0, ELASTIC_DRILL_AT)
+        state = {"params": params, **{f"opt_{f}": getattr(opt_state, f)
+                                      for f in opt_state._fields}}
+        t0 = time.perf_counter()
+        mesh, tree, at, step_fn = runner.drill(state, ELASTIC_DRILL_AT)
+        drill_s = time.perf_counter() - t0
+        runner.ckpt.close()
+    restored = type(opt_state)(*(tree[f"opt_{f}"] for f in opt_state._fields))
+    on_card = all(t.is_cuda for t in tree["params"].values())
+    _, _, after = run(tree["params"], restored, at, ELASTIC_STEPS - at)
+    checks = {"recovered_onto_1x1": tuple(mesh.shape) == (1, 1), "step": at == ELASTIC_DRILL_AT,
+              "restored_on_card": on_card, "losses_equal": before + after == straight}
+    emit("elastic_drill", arch=cfg.name, steps=ELASTIC_STEPS, drill_at=ELASTIC_DRILL_AT,
+         losses=before + after, uninterrupted=straight, drill_s=drill_s,
+         seconds=time.perf_counter() - started, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"elastic_drill checks failed: {checks}")
+
+
+def phase_pipeline(torch) -> None:
+    """``pipeline_apply`` on a 1-rank ``stage`` group at the reference test's
+    shapes (4 layers of d 16, 4 microbatches of 2): the one stage holds the
+    four layers; bit-equal to their sequential composition, microbatch by
+    microbatch, and within 1e-6 of it on the whole batch."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.parallel.pipeline import pipeline_apply
+
+    sh = PIPELINE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    Ws = torch.randn(sh["n_stages"], sh["d"], sh["d"], device="cuda", generator=gen) / 4.0
+    x = torch.randn(sh["n_micro"] * sh["mb"], sh["d"], device="cuda", generator=gen)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("stage",))
+
+    def layers(p, h):
+        for w in p["w"]:
+            h = torch.tanh(h @ w)
+        return h
+
+    out = pipeline_apply(layers, {"w": Ws[None]}, x, mesh=mesh, n_micro=sh["n_micro"])
+    per_mb = torch.cat([layers({"w": Ws}, m) for m in x.split(sh["mb"])])
+    whole = layers({"w": Ws}, x)
+    gap = float((out - whole).abs().max())
+    checks = {"bit_equal_per_microbatch": bool(torch.equal(out, per_mb)),
+              "whole_batch_within_1e-6": gap <= 1e-6}
+    emit("pipeline", **sh, stage_group=1, whole_batch_max_abs=gap, checks=checks,
+         ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"pipeline checks failed: {checks}")
+
+
+def start_dryrun():
+    """``launch.dryrun`` for yi-9b on pod16x16 in a subprocess (host only),
+    started now and read by :func:`phase_dryrun`."""
+    import os
+
+    out_dir = OUT / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "yi-9b",
+           "--mesh", "single", "--out-dir", str(out_dir)]
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, out_dir, time.perf_counter()
+
+
+def phase_dryrun(job) -> None:
+    proc, out_dir, t0 = job
+    try:
+        stdout, stderr = proc.communicate(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                                           - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"dryrun took more than {DRYRUN_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    cells = {}
+    for path in sorted(out_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        rec.pop("traceback", None)
+        cells[rec["shape"]] = rec
+    checks = {"exit_0": proc.returncode == 0, "four_cells": len(cells) == 4,
+              "three_ok": sum(bool(c.get("ok")) for c in cells.values()) == 3,
+              "long_skipped": cells.get("long_500k", {}).get("status") == "skipped(full-attention)"}
+    emit("dryrun", arch="yi-9b", mesh="pod16x16", seconds=seconds, cells=cells,
+         stdout_tail=stdout[-2000:], stderr_tail="" if proc.returncode == 0 else stderr[-4000:],
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"dryrun checks failed: {checks}")
+
+
+def phase_mesh(torch, train_step_ms: float | None = None) -> dict:
+    """Phases 23-28: the multi-device layer on the card's 1-rank mesh; returns
+    the K2-K5 launches of mesh_codesign and plan_serve."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_single_card_group, make_mesh
+
+    started = time.perf_counter()
+    job = start_dryrun()  # host-only: it runs beside the card's phases
+    launches = phase_mesh_codesign(torch)
+    own = not dist.is_initialized()
+    init_single_card_group("nccl")
+    try:
+        mesh = make_mesh((1, 1), "cuda")
+        launches.update(phase_plan_serve(torch, mesh))
+        phase_plan_train(torch, mesh, train_step_ms)
+        phase_elastic_drill(torch)
+        phase_pipeline(torch)
+    finally:
+        if own:
+            dist.destroy_process_group()
+    phase_dryrun(job)
+    emit("mesh", seconds=time.perf_counter() - started)
+    return launches
 
 
 def build_all(torch) -> None:
@@ -3997,6 +4516,47 @@ def phase_encode_ab(torch, other_src: Path):
         raise SystemExit(f"kernel_ab whisper_encode: {checks}")
 
 
+PHASE_TIMES_LIMIT_S = 1500  # each run of --phase-times
+
+
+def phase_times(dirs: list[Path]) -> None:
+    """``--phase-times DIR ...``: the plain run (``python3 chip_smoke.py``)
+    of each checkout in turn, in the order given, and each run's seconds a
+    phase: from the previous phase's last line to this phase's last line,
+    as the lines reach this process (a phase prints when it ends).  Each
+    run's output is kept in ``results/phase_times/<i>.log``."""
+    out_dir = ROOT / "results" / "phase_times"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, d in enumerate(dirs):
+        t0 = time.perf_counter()
+        stamps, last = [], None
+        with open(out_dir / f"{i}.log", "w") as log:
+            proc = subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=str(d),
+                                    stdout=subprocess.PIPE, text=True)
+            try:
+                for line in proc.stdout:
+                    log.write(line)
+                    t = time.perf_counter() - t0
+                    try:
+                        name = json.loads(line).get("phase")
+                    except (ValueError, AttributeError):
+                        name = None
+                    if name is None:
+                        continue
+                    if stamps and stamps[-1][0] == name:
+                        stamps[-1][2] = t
+                    else:
+                        stamps.append([name, last if last is not None else 0.0, t])
+                    last = t
+                rc = proc.wait(timeout=PHASE_TIMES_LIMIT_S)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        emit("phase_times", run=i, dir=str(d), rc=rc, wall_s=time.perf_counter() - t0,
+             phases=[[n, t1 - t0_] for n, t0_, t1 in stamps])
+
+
 def main() -> int:
     import torch
 
@@ -4013,6 +4573,9 @@ def main() -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    if "--phase-times" in args:  # whole plain runs of checkouts, timed a phase at a time
+        phase_times([Path(a).resolve() for a in args[args.index("--phase-times") + 1:]])
+        return 0
     if "--decode-ab" in args:
         phase_decode_ab(torch, Path(args[args.index("--decode-ab") + 1]).resolve())
         return 0
@@ -4034,6 +4597,9 @@ def main() -> int:
         return 0
     if "--train" in args:  # LM training alone: build, run phases 18-22, stop
         phase_train(torch, profile)
+        return 0
+    if "--mesh" in args:  # the multi-device layer alone: build, run phases 23-28, stop
+        phase_mesh(torch)
         return 0
     if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
         phase_service(torch, profile=profile)
@@ -4078,7 +4644,9 @@ def main() -> int:
                  phase_ssm_slice, phase_hybrid_slice):
         for kname, n in path(torch, profile=profile).items():
             launches[kname] = launches.get(kname, 0) + n
-    phase_train(torch, profile)
+    train_step_ms = phase_train(torch, profile)
+    for kname, n in phase_mesh(torch, train_step_ms).items():
+        launches[kname] = launches.get(kname, 0) + n
 
     train = kern[128]
     rows = []

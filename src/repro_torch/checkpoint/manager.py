@@ -5,8 +5,10 @@ The caller never blocks on I/O: ``save`` snapshots the leaves to host NumPy
 arrays (the only synchronous part), then a writer thread serialises them.
 Keeps the newest ``keep_n`` checkpoints as ``step_<n>`` directories, skips
 corrupt ones at resume, and leaves no torn checkpoint behind a crash (the
-atomic tmp-rename in ``ckpt.save_pytree``).  The port runs on one card, so
-``restore`` has no ``shardings`` argument.
+atomic tmp-rename in ``ckpt.save_pytree``).  ``restore(shardings=...)``
+places each leaf by its ``parallel.sharding.Sharding``: a DTensor
+(``distribute_tensor``) on a mesh of more than one rank, a plain tensor on
+the mesh's device for a mesh of one (the elastic-rescale path).
 """
 
 from __future__ import annotations
@@ -20,6 +22,26 @@ import threading
 from repro_torch.checkpoint import ckpt
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
+
+
+def _place(tree, shardings):
+    """``tree``'s leaves placed by the matching ``Sharding`` leaves."""
+    if isinstance(tree, dict):
+        return {k: _place(v, shardings.get(k)) if shardings is not None else v
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "shape"):
+        return type(tree)(_place(v, sh) for v, sh in zip(tree, shardings))
+    if shardings is None:
+        return tree
+    import torch
+
+    t = torch.as_tensor(tree)
+    mesh = shardings.mesh
+    if mesh.size() == 1:
+        return t.to(mesh.device_type)
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(mesh.device_type), mesh, list(shardings.placements))
 
 
 def _to_host(tree):
@@ -106,8 +128,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None):
-        """Load newest (or given) checkpoint; skip corrupt ones, newest first."""
+    def restore(self, step: int | None = None, shardings=None):
+        """Load newest (or given) checkpoint; skip corrupt ones, newest first.
+
+        ``shardings``: an optional tree of ``parallel.sharding.Sharding``
+        matching the saved tree (None leaves stay host arrays); each leaf is
+        placed onto its mesh."""
         candidates = sorted(self.all_steps(), reverse=True) if step is None else [step]
         last_err: Exception | None = None
         for s in candidates:
@@ -117,6 +143,8 @@ class CheckpointManager:
             except Exception as e:
                 last_err = e
                 continue
+            if shardings is not None:
+                tree = _place(tree, shardings)
             return tree, manifest
         if last_err is not None:
             raise last_err

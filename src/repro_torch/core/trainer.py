@@ -62,6 +62,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -69,6 +70,7 @@ import torch
 from repro_torch.core import chromosome, qat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qat import ops as qat_ops
+from repro_torch.parallel import sharding as shd
 
 __all__ = [
     "EvalConfig",
@@ -402,9 +404,23 @@ def device_count(dev: torch.device) -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def _device_grid(mesh, device, n_devices: int | None, build) -> shd.DeviceGrid:
+    """The grid an evaluator trains on: the first ``n_devices`` devices of
+    ``mesh`` or, without ``mesh``, ``device`` alone (``n_devices`` then only
+    has to be available); ``build(devices=...)`` makes the grid."""
+    if mesh is not None:
+        return mesh if n_devices is None else build(devices=list(mesh.devices)[:n_devices])
+    dev = resolve_device(device)
+    if n_devices is not None and not 1 <= n_devices <= device_count(dev):
+        raise ValueError(f"n_devices={n_devices}, but {device_count(dev)} {dev.type} "
+                         "device(s) are available")
+    return build(devices=[dev])
+
+
 def make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
                               cfg: EvalConfig = EvalConfig(), device=None,
-                              graph: bool | None = None, n_devices: int | None = None):
+                              graph: bool | None = None, n_devices: int | None = None,
+                              *, mesh: shd.DeviceGrid | None = None):
     """Returns ``evaluate(masks, wb, ab, bs, ep, lr, seeds, *extra) -> np.ndarray (P,)``.
 
     The test-set accuracy of each row after QAT, a pure function of the
@@ -414,68 +430,94 @@ def make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
     order), as in the reference.  ``evaluate.dispatch(...)``
     enqueues the same call and returns ``resolve()``, which waits for it;
     ``evaluate.rebuild(n_devices)`` gives a fresh evaluator (an empty graph
-    cache) on the first ``n_devices`` devices.  The port trains on one
-    device, so ``n_devices`` only has to be available.
+    cache) on the first ``n_devices`` devices.
+
+    ``mesh``: a ``parallel.sharding.DeviceGrid`` (``population_mesh``);
+    without it the evaluator trains on ``device`` alone, a ``(1,)`` grid.
+    The rows are padded to a multiple of ``max(pad_granule, n)`` rounded
+    up to the device count n and split over the grid's ``data`` axis as the
+    reference's ``logical_sharding(..., population_rules())`` splits them;
+    each device trains its block with its own row program (its own CUDA
+    graphs on a card), and the accuracies are gathered on the host.  A
+    row's result does not depend on its block, so any grid gives the bits
+    of one device.
     """
-    dev = resolve_device(device)
-    if n_devices is not None and not 1 <= n_devices <= device_count(dev):
-        raise ValueError(f"n_devices={n_devices}, but {device_count(dev)} {dev.type} "
-                         "device(s) are available")
-    prog = _Program(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, dev, _use_graph(dev, graph))
+    grid = _device_grid(mesh, device, n_devices, shd.population_mesh)
+    run = _GridPrograms(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, graph, grid)
+    rules = shd.population_rules()
+    # a bucket the data axis divides, or the rows would be replicated
+    granule = -(-max(cfg.pad_granule, 1) // grid.size) * grid.size
 
-    def dispatch(masks, wb, ab, bs, ep, lr, seeds, *extra):
-        params0, idx = draw_rows(seeds, cfg, mlp_cfg, prog.n_train)
-        acc, _, P = prog.launch(masks, wb, ab, bs, ep, lr, params0, idx, extra)
-        if dev.type == "cpu":
-            out = acc[:P].numpy()
-            return lambda: out
-        host = torch.empty(P, dtype=torch.float32, pin_memory=True)
-        host.copy_(acc[:P], non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+    def plan(P: int) -> tuple[int, tuple]:
+        bucket = -(-P // granule) * granule
+        return bucket, shd.logical_spec((bucket,), ("population",), grid, rules)
 
-        def resolve() -> np.ndarray:
-            done.synchronize()
-            return host.numpy()
-
-        return resolve
+    def dispatch(*rows):
+        P = int(np.shape(rows[0])[0])
+        bucket, spec = plan(P)
+        resolve_all = run.dispatch((bucket,), spec, [_pad_to(a, bucket) for a in rows])
+        return lambda: resolve_all()[:P]
 
     def evaluate(*rows) -> np.ndarray:
         return dispatch(*rows)()
 
-    def rebuild(n_devices: int | None = None):
-        """A fresh evaluator on the same data and config (empty graph cache)."""
-        return make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, device,
-                                         graph, n_devices)
+    def rebuild(n: int | None = None):
+        """A fresh evaluator (empty graph cache) on the first ``n`` devices."""
+        return make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, device, graph,
+                                         n, mesh=mesh)
 
     evaluate.dispatch = dispatch
     evaluate.rebuild = rebuild
-    evaluate.stats = prog.stats
+    evaluate.stats = run.stats
+    evaluate.mesh = grid
+    evaluate.granule = granule
+    evaluate.plan = plan
+    evaluate.programs = run
     return evaluate
 
 
 def make_island_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
                           cfg: EvalConfig = EvalConfig(), num_islands: int = 1, device=None,
-                          graph: bool | None = None, n_devices: int | None = None):
+                          graph: bool | None = None, n_devices: int | None = None,
+                          *, mesh: shd.DeviceGrid | None = None):
     """Returns ``evaluate(batches) -> [(B_i,) accuracies, ...]`` for the stacked island driver.
 
     ``batches`` is one ``(masks, wb, ab, bs, ep, lr, seeds, *extra)``
     tuple per island (``num_islands`` of them, zero-row batches allowed;
     ``extra`` per ``cfg.genome_axes`` as in the population evaluator).  Each
     island is padded to ONE common bucket (the largest island rounded up
-    to ``pad_granule``) by repeating its last row, an empty island by a
-    filler row from the first non-empty one, as the reference's
-    ``_launch`` does; all islands then train as one population call of
-    ``num_islands * bucket`` rows, and the results are split back per
+    to the granule) by repeating its last row, an empty island by a filler
+    row from the first non-empty one, as the reference's ``_launch`` does;
+    the islands are stacked (K, bucket) and the results split back per
     island.  A row's result is the population evaluator's, bit for bit.
     ``.dispatch(batches)`` returns a ``resolve()``; ``.rebuild(n_devices)``
     a fresh evaluator.
+
+    ``mesh``: an ``(island, data)`` ``DeviceGrid`` (``island_mesh``);
+    without it ``device`` alone, a ``(1, 1)`` grid, which trains all the
+    islands as one population call of ``num_islands * bucket`` rows.  The
+    granule is ``pad_granule`` rounded up to the group size, and the stack
+    is split as the reference's ``logical_sharding(..., island_rules())``
+    splits it: islands over the ``island`` axis (all of them on every group
+    when K does not divide it), rows over ``data``; each device trains its
+    block.  The programs are a population evaluator's on the same grid, so
+    its ``stats`` count them.
     """
     if num_islands < 1:
         raise ValueError(f"num_islands must be >= 1, got {num_islands}")
-    pop = make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, device, graph,
-                                    n_devices)
-    granule = max(int(cfg.pad_granule), 1)
+    grid = _device_grid(mesh, device, n_devices,
+                        lambda devices: shd.island_mesh(num_islands, devices=devices))
+    run = make_population_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, device, graph,
+                                    mesh=grid).programs
+    rules = shd.island_rules()
+    # rows split within an island's group: the granule divides the group
+    group = max(int(grid.shape.get("data", 1)), 1)
+    granule = -(-max(cfg.pad_granule, 1) // group) * group
+
+    def plan(sizes) -> tuple[int, tuple]:
+        bucket = -(-max(sizes) // granule) * granule
+        spec = shd.logical_spec((num_islands, bucket), ("island", "population"), grid, rules)
+        return bucket, spec
 
     def dispatch(batches):
         if len(batches) != num_islands:
@@ -483,36 +525,139 @@ def make_island_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig,
         sizes = [int(np.shape(b[0])[0]) for b in batches]
         if not any(sizes):
             return lambda: [np.zeros((0,), np.float32) for _ in sizes]
-        bucket = -(-max(sizes) // granule) * granule
+        bucket, spec = plan(sizes)
         # filler for zero-row islands: any valid chromosome, results unused
         filler = next([np.asarray(a)[:1] for a in b] for b, n in zip(batches, sizes) if n)
-        stacked = []
-        for j in range(len(filler)):
-            rows = []
-            for b, n in zip(batches, sizes):
-                a = np.repeat(filler[j], bucket, axis=0) if n == 0 else np.asarray(b[j])
-                if 0 < n < bucket:
-                    a = np.concatenate([a, np.repeat(a[-1:], bucket - n, axis=0)])
-                rows.append(a)
-            stacked.append(np.concatenate(rows))
-        resolve_all = pop.dispatch(*stacked)
+        stacked = [np.stack([_pad_to(np.asarray(b[j]) if n else filler[j], bucket)
+                             for b, n in zip(batches, sizes)])
+                   for j in range(len(filler))]
+        resolve_all = run.dispatch((num_islands, bucket), spec, stacked)
 
         def resolve():
             accs = resolve_all()
-            return [accs[i * bucket:i * bucket + n] for i, n in enumerate(sizes)]
+            return [accs[i, :n] for i, n in enumerate(sizes)]
 
         return resolve
 
     def evaluate(batches):
         return dispatch(batches)()
 
-    def rebuild(n_devices: int | None = None):
-        """A fresh island evaluator (empty graph cache)."""
-        return make_island_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, num_islands,
-                                     device, graph, n_devices)
+    def rebuild(n: int | None = None):
+        """A fresh island evaluator (empty graph cache) on the first ``n`` devices."""
+        return make_island_evaluator(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, num_islands, device,
+                                     graph, n, mesh=mesh)
 
     evaluate.dispatch = dispatch
     evaluate.rebuild = rebuild
-    evaluate.stats = pop.stats
+    evaluate.stats = run.stats
+    evaluate.mesh = grid
     evaluate.granule = granule
+    evaluate.plan = plan
     return evaluate
+
+
+# ---------------------------------------------------------------------------
+# evaluators on a device grid
+# ---------------------------------------------------------------------------
+
+def _pad_to(a, n: int) -> np.ndarray:
+    a = np.asarray(a)
+    return a if a.shape[0] == n else np.concatenate([a, np.repeat(a[-1:], n - a.shape[0], 0)])
+
+
+def device_blocks(shape: tuple[int, ...], spec: tuple, grid: shd.DeviceGrid) -> list[tuple]:
+    """Each grid device's block of an array of leading ``shape`` laid out by
+    ``spec`` (``parallel.sharding.logical_spec``): a tuple of slices, one per
+    dim; a replicated dim is whole on every device."""
+    sizes = grid.shape
+    coords = np.unravel_index(np.arange(grid.size), grid.dims)
+    out = []
+    for dev in range(grid.size):
+        where = {a: int(coords[i][dev]) for i, a in enumerate(grid.axis_names)}
+        blk = []
+        for dim, entry in zip(shape, spec):
+            axes = () if entry is None else ((entry,) if isinstance(entry, str) else entry)
+            n, part = 1, 0
+            for a in axes:
+                n, part = n * sizes[a], part * sizes[a] + where[a]
+            step = dim // n
+            blk.append(slice(part * step, (part + 1) * step))
+        out.append(tuple(blk))
+    return out
+
+
+class _StatsSum(Mapping):
+    """The row programs' ``.stats`` summed on every read."""
+
+    def __init__(self, progs):
+        self._progs = progs
+
+    def __getitem__(self, key):
+        return sum(p.stats[key] for p in self._progs)
+
+    def __iter__(self):
+        return iter(self._progs[0].stats)
+
+    def __len__(self):
+        return len(self._progs[0].stats)
+
+
+class _GridPrograms:
+    """One row program a device of ``grid``; a call trains each device's
+    block of a padded (..., bucket) stack and gathers the accuracies."""
+
+    def __init__(self, X_tr, y_tr, X_te, y_te, mlp_cfg, cfg: EvalConfig, graph, grid):
+        # the grid pads to its buckets; a device trains exactly its block
+        local = dataclasses.replace(cfg, pad_granule=1)
+        self.cfg, self.mlp_cfg, self.grid = cfg, mlp_cfg, grid
+        self.progs = [_Program(X_tr, y_tr, X_te, y_te, mlp_cfg, local, resolve_device(d),
+                               _use_graph(resolve_device(d), graph))
+                      for d in grid.devices]
+        self.stats = _StatsSum(self.progs)
+        self.n_train = self.progs[0].n_train
+
+    def dispatch(self, shape: tuple[int, ...], spec: tuple, rows: list):
+        """``rows``: (masks, wb, ab, bs, ep, lr, seeds, *extra), each with
+        leading dims ``shape``.  Returns ``resolve() -> np.ndarray(shape)``."""
+        lead = len(shape)
+        flat = [np.asarray(a).reshape((-1,) + np.shape(a)[lead:]) for a in rows]
+        params0, idx = draw_rows(flat[6], self.cfg, self.mlp_cfg, self.n_train)
+        params0 = {k: v.reshape(shape + tuple(v.shape[1:])) for k, v in params0.items()}
+        idx = idx.reshape(shape + tuple(idx.shape[1:]))
+        pending = []
+        for prog, blk in zip(self.progs, device_blocks(shape, spec, self.grid)):
+            def cut(a, blk=blk):
+                b = a[blk]
+                return b.reshape((-1,) + tuple(b.shape[lead:]))
+
+            masks, wb, ab, bs, ep, lr, _, *extra = (cut(np.asarray(a)) for a in rows)
+            acc, _, n = prog.launch(masks, wb, ab, bs, ep, lr,
+                                    {k: cut(v) for k, v in params0.items()}, cut(idx), extra)
+            pending.append((blk, _to_host(acc[:n], prog.dev)))
+
+        def resolve() -> np.ndarray:
+            out = np.empty(shape, np.float32)
+            for blk, get in pending:
+                out[blk] = get().reshape(out[blk].shape)
+            return out
+
+        return resolve
+
+
+def _to_host(acc: torch.Tensor, dev: torch.device):
+    """``get() -> np.ndarray`` of ``acc``: on a card a copy into pinned host
+    memory and an event, so nothing waits until ``get`` is called."""
+    if dev.type == "cpu":
+        out = acc.numpy()
+        return lambda: out
+    host = torch.empty(acc.shape, dtype=acc.dtype, pin_memory=True)
+    with torch.cuda.device(dev):
+        host.copy_(acc, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+    def get() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return get

@@ -2,8 +2,15 @@
 
 Wires the pieces together as the reference does: model zoo + train step +
 token pipeline + async checkpointing + auto-resume + straggler watchdog +
-failure injection + optional int8 gradient compression.  One card: the
-mesh the reference builds is ``choose_mesh_shape(1, 1) = (1, 1)`` here.
+failure injection + optional int8 gradient compression.  ``run`` builds the
+mesh as the reference does, ``make_mesh(choose_mesh_shape(n, ...))`` over
+the process group's ranks (on one card a 1-rank group it makes and tears
+down, ``(1, 1)``), computes the parameters' placements
+(:func:`param_shardings`) and runs the loop inside ``activation_mesh``.
+Like the reference, which computes them and never hands them to ``jit``, it
+does not redistribute the parameters: on one card they stay plain tensors,
+``act_constrain`` leaves them alone, and a step is the same as without the
+mesh.
 
 The step is the reference's ``train_step``: the loss and its gradients
 (``torch.autograd.grad`` of ``model.loss_fn``, which takes the plain
@@ -27,6 +34,7 @@ CLI:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -41,12 +49,15 @@ from repro_torch.configs import registry
 from repro_torch.data.tokens import TokenConfig, TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import init_single_card_group, make_mesh
 from repro_torch.models import build_model
 from repro_torch.optim import compress
 from repro_torch.runtime import FailureInjector, StragglerWatchdog
+from repro_torch.parallel import sharding as shd
 from repro_torch.runtime.elastic import choose_mesh_shape
 
-__all__ = ["TrainConfig", "build_train_state", "model_config", "step_batch", "run", "main"]
+__all__ = ["TrainConfig", "build_train_state", "param_shardings", "model_config",
+           "step_batch", "run", "main"]
 
 
 @dataclasses.dataclass
@@ -101,6 +112,31 @@ def build_train_state(cfg_model, grad_compression: str = "none"):
     return model, opt, init_fn, train_step
 
 
+def param_shardings(cfg_model, mesh) -> dict:
+    """{name: ``parallel.sharding.Sharding``} of the model's parameters on
+    ``mesh`` (``steps.specs_to_shardings`` of its logical axes)."""
+    return steps_mod.specs_to_shardings(build_model(cfg_model).param_specs(), mesh)
+
+
+@contextlib.contextmanager
+def _train_mesh(dev: torch.device):
+    """The training mesh over this process group's ranks; without a group, a
+    1-rank one (NCCL on the card, gloo on the CPU) made for the run and torn
+    down after it."""
+    import torch.distributed as dist
+
+    own = not dist.is_initialized()
+    if own:
+        init_single_card_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        n = dist.get_world_size()
+        shape = choose_mesh_shape(n, model_parallel=min(n, 2) if n > 1 else 1)
+        yield make_mesh(shape, dev.type)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
 def model_config(cfg: TrainConfig):
     """The model configuration ``cfg`` trains: reduced and depth-cut as asked."""
     model_cfg = registry.get(cfg.arch)
@@ -140,8 +176,14 @@ def run(cfg: TrainConfig) -> dict:
     "straggler_events", "params"}: the losses and gradient norms of the steps
     this call ran."""
     dev = resolve_device(cfg.device)
+    with _train_mesh(dev) as mesh:
+        return _run(cfg, dev, mesh)
+
+
+def _run(cfg: TrainConfig, dev, mesh) -> dict:
     model_cfg = model_config(cfg)
-    mesh_shape = choose_mesh_shape(1, model_parallel=1)
+    mesh_shape = tuple(mesh.shape)
+    param_sh = param_shardings(model_cfg, mesh)
     model, opt, init_fn, train_step = build_train_state(model_cfg, cfg.grad_compression)
 
     stream = TokenStream(
@@ -164,26 +206,28 @@ def run(cfg: TrainConfig) -> dict:
 
     losses, gnorms = [], []
     try:
-        for step in range(start_step, cfg.steps):
-            injector.maybe_fail(step)
-            t0 = time.perf_counter()
-            batch = step_batch(stream, step, model_cfg, cfg, dev)
-            params, opt_state, comp_state, loss, gnorm = train_step(
-                params, opt_state, comp_state, batch
-            )
-            losses.append(float(loss))  # waits for the step
-            gnorms.append(float(gnorm))
-            dt = time.perf_counter() - t0
-            ev = watchdog.observe(step, dt)
-            if ev and ev["checkpoint_now"] and ev["consecutive"] == 1:
-                # micro-checkpoint once per straggler episode; checkpointing
-                # every flagged step would itself slow the next step and spiral
-                mgr.save(step, _state_tree(params, opt_state))
-            if step % cfg.log_every == 0:
-                print(f"step {step}: loss={losses[-1]:.4f} gnorm={gnorms[-1]:.3f} {dt*1e3:.0f}ms")
-            if step > 0 and step % cfg.ckpt_every == 0:
-                mgr.save(step, _state_tree(params, opt_state))
-        mgr.save(cfg.steps, _state_tree(params, opt_state), block=True)
+        with shd.activation_mesh(mesh):
+            for step in range(start_step, cfg.steps):
+                injector.maybe_fail(step)
+                t0 = time.perf_counter()
+                batch = step_batch(stream, step, model_cfg, cfg, dev)
+                params, opt_state, comp_state, loss, gnorm = train_step(
+                    params, opt_state, comp_state, batch
+                )
+                losses.append(float(loss))  # waits for the step
+                gnorms.append(float(gnorm))
+                dt = time.perf_counter() - t0
+                ev = watchdog.observe(step, dt)
+                if ev and ev["checkpoint_now"] and ev["consecutive"] == 1:
+                    # micro-checkpoint once per straggler episode; checkpointing
+                    # every flagged step would itself slow the next step and spiral
+                    mgr.save(step, _state_tree(params, opt_state))
+                if step % cfg.log_every == 0:
+                    print(f"step {step}: loss={losses[-1]:.4f} gnorm={gnorms[-1]:.3f} "
+                          f"{dt*1e3:.0f}ms")
+                if step > 0 and step % cfg.ckpt_every == 0:
+                    mgr.save(step, _state_tree(params, opt_state))
+            mgr.save(cfg.steps, _state_tree(params, opt_state), block=True)
     finally:
         # drain the async writer even on a crash: an enqueued checkpoint left
         # in .tmp is invisible to ``latest_step`` and a resume would restart
@@ -191,7 +235,8 @@ def run(cfg: TrainConfig) -> dict:
         mgr.close()
     return {"losses": losses, "gnorms": gnorms,
             "final_loss": losses[-1] if losses else None, "start_step": start_step,
-            "mesh_shape": mesh_shape, "straggler_events": watchdog.events, "params": params}
+            "mesh_shape": mesh_shape, "param_shardings": param_sh,
+            "straggler_events": watchdog.events, "params": params}
 
 
 def _state_tree(params, opt_state) -> dict:

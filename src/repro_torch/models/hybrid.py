@@ -9,8 +9,13 @@ cache per invocation) provides the global mixing.  Decode carries
 {ssm_state, conv_state} per Mamba layer and a KV cache per shared-attention
 invocation.  What differs from the reference, and why:
 
-* **One card.** The sharding annotations are dropped; layers run as a
-  Python loop, the serving entry points under ``torch.inference_mode()``.
+* **``act_constrain`` at the reference's sites** (``parallel.sharding``),
+  and on the shared block's attention and MLP outputs (as whisper's), a
+  no-op on plain tensors and outside a mesh; a DTensor step runs the
+  chunked SSD on each device's batch rows and heads
+  (``parallel.local.heads``) and stacks its serving state instead of
+  writing it in place.  Layers run as a Python
+  loop, the serving entry points under ``torch.inference_mode()``.
   ``loss_fn`` runs with gradients on, each Mamba2 block recomputed in the
   backward pass with ``cfg.remat`` (the shared block is not, as in the
   reference).
@@ -41,7 +46,9 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, Specs, normal_init, remat
+from repro_torch.models.transformer import DTYPES, Specs, StateWriter, normal_init, remat
+from repro_torch.parallel import local as local_ops
+from repro_torch.parallel.sharding import act_constrain, act_reshape, is_dtensor
 
 __all__ = [
     "param_specs",
@@ -54,6 +61,7 @@ __all__ = [
 ]
 
 _CONV_K = 4
+_ACT = ("batch", None, None)  # (B, S, d) activations
 
 
 def _dims(cfg: ModelConfig):
@@ -194,13 +202,20 @@ def _mamba_block(x, lp, cfg: ModelConfig, conv_state=None, ssm_state=None):
     d, d_inner, Hm, hd, N, conv_dim = _dims(cfg)
     B, S, _ = x.shape
     h = L.rms_norm(x, lp["ln"])
-    proj = torch.matmul(h, lp["in_proj"])
+    proj = act_constrain(torch.matmul(h, lp["in_proj"]), ("batch", None, "ssm_heads"))
     z, xbc, dt_raw = torch.split(proj, [d_inner, conv_dim, Hm], dim=-1)
     xbc, conv_state = _causal_conv(xbc, lp["conv_w"], lp["conv_b"], conv_state)
     xm, Bm, Cm = torch.split(xbc, [d_inner, N, N], dim=-1)
     dtv = F.softplus(dt_raw.to(torch.float32) + lp["dt_bias"])  # (B,S,Hm)
     xm = xm.reshape(B, S, Hm, hd)
-    if S > 1:  # a zero initial state, whatever ssm_state is (as the reference)
+    if S > 1 and is_dtensor(xm):  # each device's batch rows and heads (parallel.local)
+        def ssd(x, Bm, Cm, dtv, A_log, Dskip, H):
+            return _ssd_chunked(x, Bm, Cm, dtv, A_log, Dskip, cfg.ssm_chunk)
+
+        y, ssm_state = local_ops.heads(
+            ssd, ((xm, 2), (Bm, None), (Cm, None), (dtv, 2)),
+            ((lp["A_log"], 0), (lp["Dskip"], 0)), Hm, outs=(2, 1))
+    elif S > 1:  # a zero initial state, whatever ssm_state is (as the reference)
         y, ssm_state = _ssd_chunked(xm, Bm, Cm, dtv, lp["A_log"], lp["Dskip"], cfg.ssm_chunk)
     else:
         if ssm_state is None:
@@ -228,9 +243,11 @@ def _shared_attn(x, rest, cfg: ModelConfig, rope=None, kv=None, kv_len=None,
     h = L.rms_norm(x, rest["sa_ln"])
     if kv is None:
         S = x.shape[1]
-        q = torch.matmul(h, rest["sa_wq"]).reshape(B, S, Hq, ahd)
-        k = torch.matmul(h, rest["sa_wk"]).reshape(B, S, Hkv, ahd)
-        v = torch.matmul(h, rest["sa_wv"]).reshape(B, S, Hkv, ahd)
+        kv_axes = ("batch", None, "kv_heads", None)
+        q = act_reshape(torch.matmul(h, rest["sa_wq"]), (B, S, Hq, ahd),
+                        ("batch", None, "heads", None))
+        k = act_reshape(torch.matmul(h, rest["sa_wk"]), (B, S, Hkv, ahd), kv_axes)
+        v = act_reshape(torch.matmul(h, rest["sa_wv"]), (B, S, Hkv, ahd), kv_axes)
         q = L.rotate(q, *rope)
         k = L.rotate(k, *rope)
         plain = L.flash_attention if S > 8192 else L.plain_attention
@@ -240,9 +257,9 @@ def _shared_attn(x, rest, cfg: ModelConfig, rope=None, kv=None, kv_len=None,
     else:
         kc, vc = kv
         Smax = kc.shape[1]
-        q = torch.matmul(h, rest["sa_wq"]).reshape(B, Hq, ahd)
-        k = torch.matmul(h, rest["sa_wk"]).reshape(B, Hkv, ahd)
-        v = torch.matmul(h, rest["sa_wv"]).reshape(B, Hkv, ahd)
+        q = act_reshape(torch.matmul(h, rest["sa_wq"]), (B, Hq, ahd), ("batch", "heads", None))
+        k = act_reshape(torch.matmul(h, rest["sa_wk"]), (B, Hkv, ahd), ("batch", "kv_heads", None))
+        v = act_reshape(torch.matmul(h, rest["sa_wv"]), (B, Hkv, ahd), ("batch", "kv_heads", None))
         cos, sin = L.rope_angles(kv_len[:, None], ahd, cfg.rope_theta)
         q = L.rotate(q[:, None], cos, sin)[:, 0]
         k = L.rotate(k[:, None], cos, sin)[:, 0]
@@ -250,14 +267,14 @@ def _shared_attn(x, rest, cfg: ModelConfig, rope=None, kv=None, kv_len=None,
         rows = torch.arange(B, device=x.device)
         inside = (kv_len < Smax)[:, None, None]
         at = kv_len.clamp(max=Smax - 1)
-        kc[rows, at] = torch.where(inside, k, kc[rows, at])
-        vc[rows, at] = torch.where(inside, v, vc[rows, at])
+        kc, vc = transformer.cache_write(kc, vc, k, v, rows, at, inside, kv_len)
         o = transformer.decode_attend(q, kc, vc, kv_len + 1)
         o = torch.matmul(o.reshape(B, Hq * ahd), rest["sa_wo"])
         new_kv = (kc, vc)
-    x = x + o
+    axes = _ACT if x.dim() == 3 else ("batch", None)
+    x = x + act_constrain(o, axes)
     h2 = L.rms_norm(x, rest["sa_ln2"])
-    x = x + L.swiglu(h2, rest["sa_wg"], rest["sa_wu"], rest["sa_wd"])
+    x = x + act_constrain(L.swiglu(h2, rest["sa_wg"], rest["sa_wu"], rest["sa_wd"]), axes)
     return x, new_kv
 
 
@@ -286,13 +303,14 @@ def _head(x, rest):
 
 
 def _mamba_residual(x, lp, cfg: ModelConfig):
+    x = act_constrain(x, _ACT)
     o, cs, ss = _mamba_block(x, lp, cfg)
-    return x + o, cs, ss
+    return act_constrain(x + o, _ACT), cs, ss
 
 
 def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool, train: bool = False):
     stacked, rest = _split(params)
-    x = rest["embed"][tokens]
+    x = act_constrain(L.embed(rest["embed"], tokens), _ACT)
     B, S, _ = x.shape
     _, _, Hm, hd, N, conv_dim = _dims(cfg)
     n_super, per = _n_super(cfg)
@@ -300,7 +318,7 @@ def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool, train: bo
                          cfg.rope_theta)
     layers = transformer.unstack(stacked)
     cache = None
-    if keep_cache:
+    if keep_cache and not is_dtensor(x):
         nl = cfg.n_layers
         cache = {
             "ssm_state": torch.empty((nl, B, Hm, hd, N), dtype=torch.float32, device=x.device),
@@ -311,18 +329,18 @@ def _full_sequence(params, tokens, cfg: ModelConfig, keep_cache: bool, train: bo
             kv_shape = (n_super, B, S, cfg.n_kv_heads, cfg.d_model // cfg.n_heads)
             for n in ("sa_k", "sa_v"):
                 cache[n] = torch.empty(kv_shape, dtype=x.dtype, device=x.device)
+    states = StateWriter(cache, keep_cache and cache is None)
     for s in range(n_super):
         for i in range(s * per, (s + 1) * per):
             x, cs, ss = remat(_mamba_residual, x, layers[i], cfg, train=train, cfg=cfg)
             if keep_cache:
-                cache["conv_state"][i] = cs
-                cache["ssm_state"][i] = ss
+                states.put(i, conv_state=cs, ssm_state=ss)
         if cfg.attn_every:
             x, (k, v) = _shared_attn(x, rest, cfg, rope, train=train)
             if keep_cache:
-                cache["sa_k"][s] = k
-                cache["sa_v"][s] = v
-    return _head(x, rest), cache
+                states.put(s, sa_k=k, sa_v=v)
+    logits = act_constrain(_head(x, rest), ("batch", None, "vocab"))
+    return logits, states.done() if keep_cache else None
 
 
 def forward(params, tokens, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
@@ -377,18 +395,20 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     in place (position ``kv_len`` of each shared-attention cache written).
     Returns (logits (B, V), the same cache dict)."""
     stacked, rest = _split(params)
-    x = rest["embed"][token][:, None]  # (B, 1, d)
+    x = act_constrain(L.embed(rest["embed"], token), ("batch", None))[:, None]  # (B,1,d)
     n_super, per = _n_super(cfg)
+    states = StateWriter(cache, is_dtensor(x))
     for s in range(n_super):
         for i in range(s * per, (s + 1) * per):
             o, cs, ss = _mamba_block(x, {k: v[i] for k, v in stacked.items()}, cfg,
                                      conv_state=cache["conv_state"][i],
                                      ssm_state=cache["ssm_state"][i])
             x = x + o
-            cache["conv_state"][i] = cs
-            cache["ssm_state"][i] = ss
+            states.put(i, conv_state=cs, ssm_state=ss)
         if cfg.attn_every:
-            x2, _ = _shared_attn(x[:, 0], rest, cfg, kv=(cache["sa_k"][s], cache["sa_v"][s]),
-                                 kv_len=kv_len)
+            x2, (kc, vc) = _shared_attn(x[:, 0], rest, cfg,
+                                        kv=(cache["sa_k"][s], cache["sa_v"][s]), kv_len=kv_len)
             x = x2[:, None]
-    return _head(x[:, 0], rest), cache
+            if states.stacked:
+                states.put(s, sa_k=kc, sa_v=vc)
+    return act_constrain(_head(x[:, 0], rest), ("batch", "vocab")), states.done()

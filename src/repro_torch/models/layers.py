@@ -13,8 +13,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import is_dtensor
+
 __all__ = [
     "NEG_INF",
+    "embed",
     "rms_norm",
     "rope_frequencies",
     "rope_angles",
@@ -24,11 +27,27 @@ __all__ = [
     "plain_attention",
     "flash_attention",
     "decode_attention_plain",
+    "dense",
     "swiglu",
     "softmax_cross_entropy",
 ]
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# embedding
+# ---------------------------------------------------------------------------
+
+def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of ``table`` (the reference's ``jnp.take``): indexing on a
+    plain tensor, a vocab-parallel lookup on a DTensor
+    (``parallel.local.embedding``)."""
+    if is_dtensor(table):
+        from repro_torch.parallel import local
+
+        return local.embedding(table, ids)
+    return table[ids]
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +202,22 @@ def decode_attention_plain(
 # MLP
 # ---------------------------------------------------------------------------
 
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``; a DTensor activation split over its sequence takes
+    ``parallel.local.project`` (the weight gathered, as context parallelism
+    runs it)."""
+    if is_dtensor(x):
+        from repro_torch.parallel import local
+
+        if local.splits_sequence(x):
+            return local.project(x, w)
+    return torch.matmul(x, w)
+
+
 def swiglu(x, w_gate, w_up, w_down):
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
-    return torch.matmul(F.silu(g) * u, w_down)
+    g = dense(x, w_gate)
+    u = dense(x, w_up)
+    return dense(F.silu(g) * u, w_down)
 
 
 # ---------------------------------------------------------------------------
@@ -201,5 +232,8 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int
     col = torch.arange(logits.shape[-1], device=logits.device)
     logits32 = logits32.masked_fill(col >= vocab, NEG_INF)
     logz = torch.logsumexp(logits32, dim=-1)
-    gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    if not is_dtensor(logits):
+        gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    else:  # a vocab-sharded DTensor: the gold logit by an exact masked sum
+        gold = torch.where(col == labels.long()[..., None], logits32, 0.0).sum(-1)
     return (logz - gold).sum() * (1.0 / logz.numel())

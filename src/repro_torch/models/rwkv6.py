@@ -18,8 +18,12 @@ tensors in ``cfg.chunk_dtype``), ``prefill`` runs
 fp32).  ``decode_step`` applies the recurrence one token at a time against
 the carried state.  What differs from the reference, and why:
 
-* **One card.** The sharding annotations are dropped; layers run as a
-  Python loop, the serving entry points under ``torch.inference_mode()``.
+* **``act_constrain`` at the reference's sites** (``parallel.sharding``),
+  a no-op on plain tensors and outside a mesh; a DTensor step runs the WKV
+  (both chunked forms and the decode recurrence) on each device's batch
+  rows and heads (``parallel.local.heads``) and stacks its serving state
+  instead of writing it in place.  Layers run as a Python
+  loop, the serving entry points under ``torch.inference_mode()``.
   ``loss_fn`` differentiates the recursive form (``forward``), each layer
   recomputed in the backward pass with ``cfg.remat``
   (``transformer.remat``).
@@ -44,7 +48,16 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, Specs, normal_init, remat, unstack
+from repro_torch.models.transformer import (
+    DTYPES,
+    Specs,
+    StateWriter,
+    normal_init,
+    remat,
+    unstack,
+)
+from repro_torch.parallel import local as local_ops
+from repro_torch.parallel.sharding import act_constrain, is_dtensor
 
 __all__ = [
     "param_specs",
@@ -57,6 +70,7 @@ __all__ = [
 ]
 
 _DECAY_RANK = 64
+_ACT = ("batch", None, None)  # (B, S, d) activations
 _BASE_BLOCK = 8  # intra_scores' explicit base blocks (the reference's ``Tb <= 8``)
 
 
@@ -115,9 +129,14 @@ def _shift(x: torch.Tensor, x_prev: torch.Tensor | None = None) -> torch.Tensor:
 
 
 def _decay_logs(xw, lp):
-    """log w_t <= 0: (B, S, d) data-dependent decay (fp32)."""
-    a = torch.tanh(torch.matmul(xw.to(torch.float32), lp["wA"].to(torch.float32)))
-    lora = torch.matmul(a, lp["wB"].to(torch.float32))
+    """log w_t <= 0: (B, S, d) data-dependent decay (fp32).  On a DTensor the
+    low-rank factor is kept whole a row and the decays split by heads (a
+    DTensor would split the rank and then meet a sequence-split gradient it
+    cannot multiply)."""
+    lead = ("batch",) + (None,) * (xw.dim() - 2)
+    a = act_constrain(torch.tanh(torch.matmul(xw.to(torch.float32),
+                                              lp["wA"].to(torch.float32))), lead + (None,))
+    lora = act_constrain(torch.matmul(a, lp["wB"].to(torch.float32)), lead + ("heads",))
     return -torch.exp(lp["w0"].to(torch.float32) + lora)
 
 
@@ -239,6 +258,29 @@ def _wkv_chunked_with_state(r, k, v, logw, u, H, chunk):
     return _carry(rs, ks, vs, cum, cum_prev, u, o_intra)
 
 
+def _wkv_step(r, k, v, logw, S_in, u, H):
+    """The recurrence for one token: r, k, v, logw (B, H * hd), the state
+    (B, H, hd, hd) -> (o (B, H, hd) fp32, the next state)."""
+    B = r.shape[0]
+    hd = r.shape[-1] // H
+    r, k, v, logw = (t.reshape(B, H, hd) for t in (r, k, v, logw))
+    u = u.reshape(H, hd)
+    kv = k.to(torch.float32)[..., :, None] * v.to(torch.float32)[..., None, :]
+    o = torch.einsum("bhk,bhkv->bhv", r.to(torch.float32), S_in + u[None, :, :, None] * kv)
+    return o, torch.exp(logw)[..., None] * S_in + kv
+
+
+def _on_heads(fn, xs, params, H, outs):
+    """``fn(*xs, *params, H)``; on DTensors on each device's batch rows and
+    heads (``parallel.local.heads``).  An input of ``xs`` given bare has its
+    heads in its last dim; else it is (tensor, head dim).  ``params`` are
+    per-channel (H * hd,) parameters."""
+    xs = tuple(x if isinstance(x, tuple) else (x, x.dim() - 1) for x in xs)
+    if not is_dtensor(xs[0][0]):
+        return fn(*(t for t, _ in xs), *params, H)
+    return local_ops.heads(fn, xs, tuple((p, 0) for p in params), H, outs)
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
@@ -266,10 +308,14 @@ def _time_mix(x, lp, cfg: ModelConfig, x_prev=None):
     B, S, d = x.shape
     H = cfg.n_heads
     r, k, v, g, logw = _mix_inputs(x, _shift(x, x_prev) - x, lp)
-    o = _wkv_chunked(r, k, v, logw, lp["u"].to(torch.float32), H, cfg.ssm_chunk,
-                     chunk_dtype=DTYPES[cfg.chunk_dtype])
+
+    def wkv(r, k, v, logw, u, H):
+        return _wkv_chunked(r, k, v, logw, u, H, cfg.ssm_chunk,
+                            chunk_dtype=DTYPES[cfg.chunk_dtype])
+
+    o = _on_heads(wkv, (r, k, v, logw), (lp["u"].to(torch.float32),), H, outs=(2,))
     o = _mix_output(o.reshape(B, S, H, d // H), lp, g, x.dtype)
-    return torch.matmul(o, lp["w_o"])
+    return act_constrain(torch.matmul(o, lp["w_o"]), _ACT)
 
 
 def _channel_mix(x, lp, x_prev=None, xx=None):
@@ -305,18 +351,19 @@ def _head(x, rest):
 
 
 def _block(x, lp, cfg: ModelConfig):
+    x = act_constrain(x, _ACT)
     x = x + _time_mix(L.rms_norm(x, lp["ln1"]), lp, cfg)
-    return x + _channel_mix(L.rms_norm(x, lp["ln2"]), lp)
+    return act_constrain(x + _channel_mix(L.rms_norm(x, lp["ln2"]), lp), _ACT)
 
 
 def forward(params, tokens, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
     """Logits (B, S, V) of a full sequence, the recursive chunked form
     (``train``: layers rematted by ``cfg.remat``)."""
     stacked, rest = _split(params)
-    x = rest["embed"][tokens]
+    x = act_constrain(L.embed(rest["embed"], tokens), _ACT)
     for lp in unstack(stacked):
         x = remat(_block, x, lp, cfg, train=train, cfg=cfg)
-    return _head(x, rest)
+    return act_constrain(_head(x, rest), ("batch", None, "vocab"))
 
 
 def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
@@ -350,27 +397,22 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     states, updated in place.  ``kv_len`` is unused (the state carries the
     position).  Returns (logits (B, V), the same cache dict)."""
     stacked, rest = _split(params)
-    B = token.shape[0]
-    d, H = cfg.d_model, cfg.n_heads
-    hd = d // H
-    x = rest["embed"][token]  # (B, d)
+    H = cfg.n_heads
+    x = act_constrain(L.embed(rest["embed"], token), ("batch", None))  # (B, d)
+    states = StateWriter(cache, is_dtensor(x))
     for i in range(cfg.n_layers):
         lp = _layer_params(stacked, i)
         S_in = cache["wkv_state"][i]
+        x = act_constrain(x, ("batch", None))
         h = L.rms_norm(x, lp["ln1"])
         r, k, v, g, logw = _mix_inputs(h, cache["tm_prev"][i] - h, lp)
-        r, k, v, logw = (t.reshape(B, H, hd) for t in (r, k, v, logw))
-        u = lp["u"].to(torch.float32).reshape(H, hd)
-        kv = k.to(torch.float32)[..., :, None] * v.to(torch.float32)[..., None, :]
-        o = torch.einsum("bhk,bhkv->bhv", r.to(torch.float32), S_in + u[None, :, :, None] * kv)
-        S_out = torch.exp(logw)[..., None] * S_in + kv
+        o, S_out = _on_heads(_wkv_step, ((r, 1), (k, 1), (v, 1), (logw, 1), (S_in, 1)),
+                             (lp["u"].to(torch.float32),), H, outs=(1, 1))
         x = x + torch.matmul(_mix_output(o, lp, g, x.dtype), lp["w_o"])
         h2 = L.rms_norm(x, lp["ln2"])
         x = x + _channel_mix(h2, lp, xx=cache["cm_prev"][i] - h2)
-        cache["wkv_state"][i] = S_out
-        cache["tm_prev"][i] = h
-        cache["cm_prev"][i] = h2
-    return _head(x, rest), cache
+        states.put(i, wkv_state=S_out, tm_prev=h, cm_prev=h2)
+    return act_constrain(_head(x, rest), ("batch", "vocab")), states.done()
 
 
 def prefill(params, tokens, cfg: ModelConfig):
@@ -381,27 +423,35 @@ def prefill(params, tokens, cfg: ModelConfig):
     token-shift buffers needed to continue decoding at position S.
     """
     stacked, rest = _split(params)
-    x = rest["embed"][tokens]
+    x = act_constrain(L.embed(rest["embed"], tokens), _ACT)
     B, S, d = x.shape
     H = cfg.n_heads
     nl = cfg.n_layers
-    cache = {
-        "wkv_state": torch.empty((nl, B, H, d // H, d // H), dtype=torch.float32,
-                                 device=x.device),
-        "tm_prev": torch.empty((nl, B, d), dtype=x.dtype, device=x.device),
-        "cm_prev": torch.empty((nl, B, d), dtype=x.dtype, device=x.device),
-    }
+    cache = None
+    if not is_dtensor(x):
+        cache = {
+            "wkv_state": torch.empty((nl, B, H, d // H, d // H), dtype=torch.float32,
+                                     device=x.device),
+            "tm_prev": torch.empty((nl, B, d), dtype=x.dtype, device=x.device),
+            "cm_prev": torch.empty((nl, B, d), dtype=x.dtype, device=x.device),
+        }
+    states = StateWriter(cache, cache is None)
     for i in range(nl):
         lp = _layer_params(stacked, i)
         h = L.rms_norm(x, lp["ln1"])
         r, k, v, g, logw = _mix_inputs(h, _shift(h) - h, lp)
-        o, state = _wkv_chunked_with_state(
-            r, k, v, logw, lp["u"].to(torch.float32), H, cfg.ssm_chunk)
+
+        def wkv(r, k, v, logw, u, H):
+            return _wkv_chunked_with_state(r, k, v, logw, u, H, cfg.ssm_chunk)
+
+        o, state = _on_heads(wkv, (r, k, v, logw), (lp["u"].to(torch.float32),), H,
+                             outs=(2, 1))
         o = _mix_output(o.reshape(B, S, H, d // H), lp, g, x.dtype)
-        x = x + torch.matmul(o, lp["w_o"])
+        # the time-mix output in the batch layout (else DTensor may
+        # reduce-scatter it over the sequence, which the next product cannot take)
+        x = x + act_constrain(torch.matmul(o, lp["w_o"]), _ACT)
         h2 = L.rms_norm(x, lp["ln2"])
-        x = x + _channel_mix(h2, lp)
-        cache["wkv_state"][i] = state
-        cache["tm_prev"][i] = h[:, -1]
-        cache["cm_prev"][i] = h2[:, -1]
-    return _head(x, rest), cache
+        x = act_constrain(x + _channel_mix(h2, lp), _ACT)
+        states.put(i, wkv_state=state, tm_prev=h[:, -1], cm_prev=h2[:, -1])
+    return act_constrain(_head(x, rest), ("batch", None, "vocab")), states.done()
+

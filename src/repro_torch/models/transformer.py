@@ -5,8 +5,11 @@ The port of the JAX package's ``models/transformer.py``: the same parameter
 names, shapes and layouts (layer parameters stacked on a leading
 ``n_layers`` axis), the same entry points.  What differs, and why:
 
-* **One card.** ``act_constrain`` and the logical-axis sharding annotations
-  are dropped; the axes stay in ``param_specs`` as data.
+* **``act_constrain`` at the reference's sites** (``parallel.sharding``):
+  inside ``activation_mesh`` it redistributes a DTensor activation to the
+  layout of its logical axes, as the reference's sharding constraints do;
+  on a plain tensor, and outside a mesh, it returns its input, so one card
+  runs exactly as without it.
 * **Layers run as a Python loop** over the stacked parameters in place of
   ``lax.scan``.  The serving entry points run under
   ``torch.inference_mode()``; ``loss_fn`` runs with gradients on, and with
@@ -65,6 +68,15 @@ from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import local as local_ops
+from repro_torch.parallel.sharding import (
+    act_constrain,
+    act_reshape,
+    attn_q_axes,
+    is_dtensor,
+    lm_act_axes,
+    moe_stationary,
+)
 
 __all__ = [
     "DTYPES",
@@ -77,6 +89,8 @@ __all__ = [
     "cache_specs",
     "attend",
     "decode_attend",
+    "cache_write",
+    "StateWriter",
     "normal_init",
 ]
 
@@ -168,14 +182,20 @@ def normal_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
 def attend(q, k, v, causal: bool, plain=L.plain_attention, train: bool = False):
     """Full-sequence attention: K4 on a CUDA tensor; on the CPU, or with
     ``train`` on any device, ``plain``, the plain version the reference's
-    model picks (and trains through)."""
+    model picks (and trains through); on a DTensor, the same choice on
+    each device's shards (``parallel.local``)."""
+    if is_dtensor(q):
+        return local_ops.attention(plain, q, k, v, causal, train)
     if q.is_cuda and not train:
         return flash_ops.flash_attention(q, k, v, causal=causal)
     return plain(q, k, v, causal=causal)
 
 
 def decode_attend(q, k_cache, v_cache, kv_len):
-    """One-token attention: K5 on CUDA, the reference's jnp twin on the CPU."""
+    """One-token attention: K5 on CUDA, the reference's jnp twin on the CPU;
+    on a DTensor, the same choice on each device's shards."""
+    if is_dtensor(q):
+        return local_ops.decode_attention(q, k_cache, v_cache, kv_len)
     if q.is_cuda:
         return decode_ops.decode_attention(q, k_cache, v_cache, kv_len)
     return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
@@ -187,17 +207,18 @@ def _attention_block(x, lp, cfg: ModelConfig, rope, plain, train: bool):
     B, S, d = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     h = L.rms_norm(x, lp["ln1"])
-    q = torch.matmul(h, lp["wq"]).reshape(B, S, Hq, hd)
-    k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
-    v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
+    kv_axes = ("batch", None, "kv_heads", None)
+    q = act_reshape(L.dense(h, lp["wq"]), (B, S, Hq, hd), attn_q_axes(Hq))
+    k = act_reshape(L.dense(h, lp["wk"]), (B, S, Hkv, hd), kv_axes)
+    v = act_reshape(L.dense(h, lp["wv"]), (B, S, Hkv, hd), kv_axes)
     if cfg.qk_norm:
         q = L.rms_norm(q, lp["q_norm"])
         k = L.rms_norm(k, lp["k_norm"])
     q = L.rotate(q, *rope)
     k = L.rotate(k, *rope)
     o = attend(q, k, v, True, plain, train)
-    o = torch.matmul(o.reshape(B, S, Hq * hd), lp["wo"])
-    return x + o, (k, v)
+    o = L.dense(o.reshape(B, S, Hq * hd), lp["wo"])
+    return x + act_constrain(o, lm_act_axes(Hq)), (k, v)
 
 
 def _moe_route(h, lp, cfg: ModelConfig):
@@ -223,12 +244,11 @@ def _moe_route(h, lp, cfg: ModelConfig):
     return topv, topi, pos, pos < C, C
 
 
-def _moe_block(h, lp, cfg: ModelConfig):
-    """Capacity-bounded top-k MoE over (B, S, d) activations, index dispatch:
-    token indices are scattered into the (E * C [+1 overflow]) expert
-    queues, activations gathered by index, the expert products batched
-    over the expert axis, each (token, k)'s output gathered back and
-    weighted by its gate."""
+def _moe_dispatch(h, lp, cfg: ModelConfig):
+    """Route (B, S, d) tokens and gather each expert's queue: token indices
+    are scattered into the (E * C [+1 overflow]) expert queues and the
+    activations gathered by index.  Returns (xe (E, B, C, d), slot (B, S*K),
+    topv (B, S, K))."""
     B, S, d = h.shape
     E, K = cfg.n_experts, cfg.top_k
     topv, topi, pos, keep, C = _moe_route(h, lp, cfg)
@@ -239,15 +259,56 @@ def _moe_block(h, lp, cfg: ModelConfig):
     h_pad = torch.cat([h, h.new_zeros(B, 1, d)], dim=1)  # sentinel S -> zero row
     idx = tok_of_slot[:, : E * C, None].expand(B, E * C, d)
     xe = torch.gather(h_pad, 1, idx).reshape(B, E, C, d).transpose(0, 1)  # (E,B,C,d)
-    xe = xe.reshape(E, B * C, d)
-    g = torch.matmul(xe, lp["we_gate"])
-    u = torch.matmul(xe, lp["we_up"])
-    y = torch.matmul(F.silu(g) * u, lp["we_down"])  # (E, B*C, d)
-    yb = y.reshape(E, B, C, d).transpose(0, 1).reshape(B, E * C, d)
+    return xe, slot, topv
+
+
+def _moe_combine(y, slot, topv):
+    """(E, B, C, d) expert outputs -> (B, S, d): each (token, k)'s output
+    gathered by its slot (the overflow slot a zero row) and weighted by its
+    gate."""
+    E, B, C, d = y.shape
+    S, K = topv.shape[1], topv.shape[2]
+    yb = y.transpose(0, 1).reshape(B, E * C, d)
     yb = torch.cat([yb, yb.new_zeros(B, 1, d)], dim=1)
     per_k = torch.gather(yb, 1, slot[..., None].expand(B, S * K, d))
     per_k = per_k.reshape(B, S, K, d) * topv[..., None].to(y.dtype)
-    out = per_k.sum(2)
+    return per_k.sum(2)
+
+
+def _moe_block(h, lp, cfg: ModelConfig):
+    """Capacity-bounded top-k MoE over (B, S, d) activations, index dispatch
+    (:func:`_moe_dispatch`), the expert products batched over the expert
+    axis, each (token, k)'s output gathered back and weighted by its gate
+    (:func:`_moe_combine`).  A DTensor step dispatches and combines on each
+    batch shard (``parallel.local``)."""
+    distributed = is_dtensor(h)
+    if distributed:
+        xe, slot, topv = local_ops.moe_dispatch(_moe_dispatch, h, lp["router"], cfg)
+    else:
+        xe, slot, topv = _moe_dispatch(h, lp, cfg)
+    E, B, C, d = xe.shape
+    if moe_stationary():
+        # weights-stationary EP: gather the token batch into the expert
+        # compute, keep eff sharded on the weights, partial-sum the down-proj
+        xe = act_constrain(xe, ("experts", None, None, None)).reshape(E, B * C, d)
+        f_axes = ("experts", None, None, "expert_ffn")
+        g = torch.matmul(xe, lp["we_gate"])
+        u = torch.matmul(xe, lp["we_up"])
+        eff = g.shape[-1]
+        g = act_constrain(g.reshape(E, B, C, eff), f_axes).reshape(E, B * C, eff)
+        u = act_constrain(u.reshape(E, B, C, eff), f_axes).reshape(E, B * C, eff)
+    else:
+        xe = act_constrain(xe, ("experts", "batch", None, None))  # all-to-all
+        xe = xe.reshape(E, B * C, d)
+        g = torch.matmul(xe, lp["we_gate"])
+        u = torch.matmul(xe, lp["we_up"])
+    y = torch.matmul(F.silu(g) * u, lp["we_down"])  # (E, B*C, d)
+    y = act_constrain(y.reshape(E, B, C, d), ("experts", "batch", None, None))
+    if distributed:
+        out = local_ops.moe_combine(_moe_combine, y, slot, topv)
+    else:
+        out = _moe_combine(y, slot, topv)
+    out = act_constrain(out, lm_act_axes(cfg.n_heads))
     if cfg.moe_dense_residual:
         out = out + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
     return out
@@ -264,8 +325,10 @@ def _mlp(h, lp, cfg: ModelConfig):
 
 
 def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False):
+    x = act_constrain(x, lm_act_axes(cfg.n_heads))
     x, kv = _attention_block(x, lp, cfg, rope, plain, train)
-    return x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg), kv
+    x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg)
+    return act_constrain(x, lm_act_axes(cfg.n_heads)), kv
 
 
 _LAYER_KEYS = (
@@ -318,7 +381,7 @@ def _choose_attn(cfg: ModelConfig, seq_len: int):
 def _head(x, rest, cfg: ModelConfig):
     x = L.rms_norm(x, rest["final_norm"])
     head = rest["embed"].T if cfg.tie_embeddings else rest["lm_head"]
-    return torch.matmul(x, head)
+    return L.dense(x, head)
 
 
 # ---------------------------------------------------------------------------
@@ -336,22 +399,23 @@ def _patches(pe, rest, cfg: ModelConfig, dtype):
 def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: bool,
                    train: bool = False):
     stacked, rest = _split_layer_params(params)
-    x = rest["embed"][tokens]  # (B, S, d)
+    x = act_constrain(L.embed(rest["embed"], tokens), lm_act_axes(cfg.n_heads))  # (B,S,d)
     if cfg.family == "vlm" and patch_embeds is not None:
         x = torch.cat([_patches(patch_embeds, rest, cfg, x.dtype), x], dim=1)
     B, S = x.shape[:2]
     rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
     plain = _choose_attn(cfg, S)
     cache = None
-    if keep_cache:
+    if keep_cache and not is_dtensor(x):
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
         cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
+    states = StateWriter(cache, keep_cache and cache is None)
     for i, lp in enumerate(unstack(stacked)):
         x, (k, v) = remat(_layer, x, lp, cfg, rope, plain, train, train=train, cfg=cfg)
         if keep_cache:
-            cache["k"][i] = k
-            cache["v"][i] = v
-    return _head(x, rest, cfg), cache
+            states.put(i, k=k, v=v)
+    logit_axes = ("batch", lm_act_axes(cfg.n_heads)[1], "vocab")
+    return act_constrain(_head(x, rest, cfg), logit_axes), states.done() if keep_cache else None
 
 
 def forward(params, tokens, cfg: ModelConfig, patch_embeds=None,
@@ -387,13 +451,16 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
       cache: {"k","v"}: (L, B, Smax, Hkv, hd); position ``kv_len`` is written
         in place.
       kv_len: (B,) int32 current lengths (same for all layers).
-    Returns: (logits (B, V), the same cache dict).
+    Returns: (logits (B, V), the same cache dict).  A DTensor cache (a plan
+    traced on a mesh) is rebuilt as the reference does, by its where-update,
+    and returned as a new dict.
     """
     stacked, rest = _split_layer_params(params)
     B = token.shape[0]
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     Smax = cache["k"].shape[2]
-    x = rest["embed"][token]  # (B, d)
+    x = act_constrain(L.embed(rest["embed"], token), ("batch", None))  # (B, d)
+    states = StateWriter(cache, is_dtensor(cache["k"]))
     pos = kv_len
     rows = torch.arange(B, device=x.device)
     # the reference's where-update writes nothing for a row at or past Smax
@@ -403,22 +470,38 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     cos, sin = L.rope_angles(pos[:, None], hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = _layer_params(stacked, i)
+        x = act_constrain(x, ("batch", None))
         h = L.rms_norm(x, lp["ln1"])
-        q = torch.matmul(h, lp["wq"]).reshape(B, Hq, hd)
-        k = torch.matmul(h, lp["wk"]).reshape(B, Hkv, hd)
-        v = torch.matmul(h, lp["wv"]).reshape(B, Hkv, hd)
+        # the reference constrains none of these; a DTensor must (act_reshape)
+        q = act_reshape(torch.matmul(h, lp["wq"]), (B, Hq, hd), ("batch", "heads", None))
+        k = act_reshape(torch.matmul(h, lp["wk"]), (B, Hkv, hd), ("batch", "kv_heads", None))
+        v = act_reshape(torch.matmul(h, lp["wv"]), (B, Hkv, hd), ("batch", "kv_heads", None))
         if cfg.qk_norm:
             q = L.rms_norm(q, lp["q_norm"])
             k = L.rms_norm(k, lp["k_norm"])
         q = L.rotate(q[:, None], cos, sin)[:, 0]
         k = L.rotate(k[:, None], cos, sin)[:, 0]
-        kc, vc = cache["k"][i], cache["v"][i]
-        kc[rows, at] = torch.where(inside, k, kc[rows, at])
-        vc[rows, at] = torch.where(inside, v, vc[rows, at])
+        kc, vc = cache_write(cache["k"][i], cache["v"][i], k, v, rows, at, inside, pos)
+        if states.stacked:  # a plain cache was written in place
+            states.put(i, k=kc, v=vc)
         o = decode_attend(q, kc, vc, attn_len)
         x = x + torch.matmul(o.reshape(B, Hq * hd), lp["wo"])
         x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg)
-    return _head(x, rest, cfg), cache
+    return act_constrain(_head(x, rest, cfg), ("batch", "vocab")), states.done()
+
+
+def cache_write(kc, vc, k, v, rows, at, inside, pos):
+    """One token's k/v (B, Hkv, hd) written into a layer's (B, Smax, Hkv, hd)
+    cache at ``pos``, nothing at or past Smax: in place (``rows``, ``at`` the
+    clamped position, ``inside`` its mask), or on a DTensor cache by the
+    reference's where-update into a new tensor.  Returns the layer's cache."""
+    if is_dtensor(kc):
+        upd = (torch.arange(kc.shape[1], device=pos.device)[None, :, None, None]
+               == pos[:, None, None, None])
+        return torch.where(upd, k[:, None], kc), torch.where(upd, v[:, None], vc)
+    kc[rows, at] = torch.where(inside, k, kc[rows, at])
+    vc[rows, at] = torch.where(inside, v, vc[rows, at])
+    return kc, vc
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Specs:
@@ -426,3 +509,25 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Specs:
     shape = (cfg.n_layers, batch, max_len, Hkv, hd)
     axes = (None, "batch", None, "kv_heads", "head_dim")
     return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+
+
+class StateWriter:
+    """The serving state a step writes a layer at a time: in place into
+    ``cache``, or (a DTensor step, ``stacked``) collected and stacked, as the
+    reference's scan stacks it."""
+
+    def __init__(self, cache, stacked: bool):
+        self.cache, self.stacked = cache, stacked
+        self.rows: dict[str, list] = {}
+
+    def put(self, i: int, **state) -> None:
+        for name, t in state.items():
+            if self.stacked:
+                self.rows.setdefault(name, []).append(t)
+            else:
+                self.cache[name][i] = t
+
+    def done(self) -> dict:
+        if self.stacked:
+            return {name: torch.stack(ts) for name, ts in self.rows.items()}
+        return self.cache

@@ -10,10 +10,16 @@ encoder, learned positions on the decoder (``max_target_len``), tanh-GELU
 MLPs (``jax.nn.gelu``'s default), cross-attention K/V precomputed once for
 decode.  What differs from the reference, and why:
 
-* **One card.** The sharding annotations are dropped; layers run as a
-  Python loop; the serving entry points run under
-  ``torch.inference_mode()`` (``decode_train`` is the teacher-forced
-  full-sequence decoder, used there to check the decode steps).
+* **``act_constrain`` at the reference's sites** (``parallel.sharding``),
+  a no-op on plain tensors and outside a mesh; on DTensors the head splits
+  go through ``act_reshape``, each block's attention and MLP outputs are
+  constrained to ``("batch", None, None)`` as the transformer's attention
+  output is (else DTensor may reduce-scatter a partial sum over the
+  sequence, which the next product cannot take), and ``decode_step`` takes
+  the reference's where-update of the self cache.  Layers run as a Python
+  loop; the serving entry points run under ``torch.inference_mode()``
+  (``decode_train`` is the teacher-forced full-sequence decoder, used there
+  to check the decode steps).
   ``loss_fn`` (``encode`` + ``decode_train`` with ``train``) runs with
   gradients on, each block recomputed in the backward pass with
   ``cfg.remat``; K1 still digitises the frames once, and its
@@ -43,7 +49,8 @@ from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, Specs, remat
+from repro_torch.models.transformer import DTYPES, Specs, StateWriter, cache_write, remat
+from repro_torch.parallel.sharding import act_constrain, act_reshape, is_dtensor
 
 __all__ = [
     "param_specs",
@@ -149,16 +156,24 @@ def _heads(cfg: ModelConfig) -> tuple[int, int, int]:
     return cfg.n_heads, cfg.n_kv_heads, cfg.d_model // cfg.n_heads
 
 
+_ACT = ("batch", None, None)  # (B, S, d) activations
+_Q = ("batch", None, "heads", None)
+_KV = ("batch", None, "kv_heads", None)
+_Q1 = ("batch", "heads", None)
+_KV1 = ("batch", "kv_heads", None)
+
+
 def _enc_block(x, lp, cfg: ModelConfig, train: bool):
     B, S, _ = x.shape
     H, Hkv, hd = _heads(cfg)
+    x = act_constrain(x, ("batch", None, None))
     h = L.rms_norm(x, lp["ln1"])
-    q = torch.matmul(h, lp["wq"]).reshape(B, S, H, hd)
-    k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
-    v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
+    q = act_reshape(torch.matmul(h, lp["wq"]), (B, S, H, hd), _Q)
+    k = act_reshape(torch.matmul(h, lp["wk"]), (B, S, Hkv, hd), _KV)
+    v = act_reshape(torch.matmul(h, lp["wv"]), (B, S, Hkv, hd), _KV)
     o = _attend(q, k, v, causal=False, train=train)
-    x = x + torch.matmul(o.reshape(B, S, H * hd), lp["wo"])
-    return x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
+    x = x + act_constrain(torch.matmul(o.reshape(B, S, H * hd), lp["wo"]), _ACT)
+    return x + act_constrain(_mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"]), _ACT)
 
 
 def encode(params, frames, cfg: ModelConfig, train: bool = False) -> torch.Tensor:
@@ -169,7 +184,7 @@ def encode(params, frames, cfg: ModelConfig, train: bool = False) -> torch.Tenso
     if cfg.use_pruned_frontend:
         fe = PrunedQuantFrontend(FrontendConfig(cfg.d_model, cfg.frontend_adc_bits))
         x = fe.to(x.device)(x)
-    x = x.to(params["embed"].dtype)
+    x = act_constrain(x.to(params["embed"].dtype), ("batch", None, None))
     B, T, d = x.shape
     x = x + _sinusoid(T, d, x.dtype, x.device)
     for i in range(cfg.encoder_layers):
@@ -180,8 +195,8 @@ def encode(params, frames, cfg: ModelConfig, train: bool = False) -> torch.Tenso
 def _cross_kv(enc_states, lx, cfg: ModelConfig):
     B, Te, _ = enc_states.shape
     _, Hkv, hd = _heads(cfg)
-    k = torch.matmul(enc_states, lx["wk"]).reshape(B, Te, Hkv, hd)
-    v = torch.matmul(enc_states, lx["wv"]).reshape(B, Te, Hkv, hd)
+    k = act_reshape(torch.matmul(enc_states, lx["wk"]), (B, Te, Hkv, hd), _KV)
+    v = act_reshape(torch.matmul(enc_states, lx["wv"]), (B, Te, Hkv, hd), _KV)
     return k, v
 
 
@@ -189,18 +204,27 @@ def _dec_block(x, lp, lx, enc_states, cfg: ModelConfig, train: bool):
     B, S, _ = x.shape
     H, Hkv, hd = _heads(cfg)
     h = L.rms_norm(x, lp["ln1"])
-    q = torch.matmul(h, lp["wq"]).reshape(B, S, H, hd)
-    k = torch.matmul(h, lp["wk"]).reshape(B, S, Hkv, hd)
-    v = torch.matmul(h, lp["wv"]).reshape(B, S, Hkv, hd)
+    q = act_reshape(torch.matmul(h, lp["wq"]), (B, S, H, hd), _Q)
+    k = act_reshape(torch.matmul(h, lp["wk"]), (B, S, Hkv, hd), _KV)
+    v = act_reshape(torch.matmul(h, lp["wv"]), (B, S, Hkv, hd), _KV)
     o = _attend(q, k, v, causal=True, train=train)
-    x = x + torch.matmul(o.reshape(B, S, H * hd), lp["wo"])
+    x = x + act_constrain(torch.matmul(o.reshape(B, S, H * hd), lp["wo"]), _ACT)
     # cross-attention
     hc = L.rms_norm(x, lx["ln"])
-    qc = torch.matmul(hc, lx["wq"]).reshape(B, S, H, hd)
+    qc = act_reshape(torch.matmul(hc, lx["wq"]), (B, S, H, hd), _Q)
     kc, vc = _cross_kv(enc_states, lx, cfg)
     oc = _attend(qc, kc, vc, causal=False, train=train)
-    x = x + torch.matmul(oc.reshape(B, S, H * hd), lx["wo"])
-    return x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
+    x = x + act_constrain(torch.matmul(oc.reshape(B, S, H * hd), lx["wo"]), _ACT)
+    return x + act_constrain(_mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"]), _ACT)
+
+
+def _pos_dec(params, S: int):
+    """The decoder's first S learned positions: a slice, or on a DTensor the
+    rows by ``layers.embed`` (a DTensor slice of them has no strategy in some
+    torch releases)."""
+    if is_dtensor(params["pos_dec"]):
+        return L.embed(params["pos_dec"], torch.arange(S, device=params["pos_dec"].device))
+    return params["pos_dec"][:S]
 
 
 def decode_train(params, tokens, enc_states, cfg: ModelConfig,
@@ -209,13 +233,13 @@ def decode_train(params, tokens, enc_states, cfg: ModelConfig,
     (B, S, V) (``train``: plain attention on every device, blocks rematted
     by ``cfg.remat``)."""
     S = tokens.shape[1]
-    x = params["embed"][tokens] + params["pos_dec"][:S]
+    x = act_constrain(L.embed(params["embed"], tokens) + _pos_dec(params, S), _ACT)
     for i in range(cfg.n_layers):
         lp = _layer(params, "dec", i)
         lx = _layer(params, "x", i, ("ln", "wq", "wk", "wv", "wo"))
         x = remat(_dec_block, x, lp, lx, enc_states, cfg, train, train=train, cfg=cfg)
     x = L.rms_norm(x, params["final_norm"])
-    return torch.matmul(x, params["lm_head"])
+    return act_constrain(torch.matmul(x, params["lm_head"]), ("batch", None, "vocab"))
 
 
 def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
@@ -263,29 +287,35 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     H, Hkv, hd = _heads(cfg)
     Smax = cache["self_k"].shape[2]
     pos = kv_len
-    x = params["embed"][token] + params["pos_dec"][pos.clamp(max=cfg.max_target_len - 1)]
+    x = L.embed(params["embed"], token) + L.embed(params["pos_dec"],
+                                                  pos.clamp(max=cfg.max_target_len - 1))
     rows = torch.arange(B, device=x.device)
     inside = (pos < Smax)[:, None, None]
     at = pos.clamp(max=Smax - 1)
     attn_len = pos + 1
     Te = cache["cross_k"].shape[2]
     cross_len = torch.full((B,), Te, dtype=torch.int32, device=x.device)
+    states = StateWriter(cache, is_dtensor(cache["self_k"]))
     for i in range(cfg.n_layers):
         lp = _layer(params, "dec", i)
         lx = _layer(params, "x", i, ("ln", "wq", "wo"))
         h = L.rms_norm(x, lp["ln1"])
-        q = torch.matmul(h, lp["wq"]).reshape(B, H, hd)
-        k = torch.matmul(h, lp["wk"]).reshape(B, Hkv, hd)
-        v = torch.matmul(h, lp["wv"]).reshape(B, Hkv, hd)
-        kc, vc = cache["self_k"][i], cache["self_v"][i]
-        kc[rows, at] = torch.where(inside, k, kc[rows, at])
-        vc[rows, at] = torch.where(inside, v, vc[rows, at])
+        # the reference constrains none of these; a DTensor must (act_reshape)
+        q = act_reshape(torch.matmul(h, lp["wq"]), (B, H, hd), _Q1)
+        k = act_reshape(torch.matmul(h, lp["wk"]), (B, Hkv, hd), _KV1)
+        v = act_reshape(torch.matmul(h, lp["wv"]), (B, Hkv, hd), _KV1)
+        kc, vc = cache_write(cache["self_k"][i], cache["self_v"][i], k, v, rows, at, inside,
+                             pos)
+        if states.stacked:  # a plain cache was written in place
+            states.put(i, self_k=kc, self_v=vc)
         o = T.decode_attend(q, kc, vc, attn_len)
         x = x + torch.matmul(o.reshape(B, H * hd), lp["wo"])
         hc = L.rms_norm(x, lx["ln"])
-        qc = torch.matmul(hc, lx["wq"]).reshape(B, H, hd)
+        qc = act_reshape(torch.matmul(hc, lx["wq"]), (B, H, hd), _Q1)
         oc = T.decode_attend(qc, cache["cross_k"][i], cache["cross_v"][i], cross_len)
         x = x + torch.matmul(oc.reshape(B, H * hd), lx["wo"])
         x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp["w1"], lp["w2"])
     x = L.rms_norm(x, params["final_norm"])
+    if states.stacked:
+        cache = {**cache, **states.done()}
     return torch.matmul(x, params["lm_head"]), cache

@@ -1,6 +1,6 @@
 """Runtime policies: failure injection, the straggler watchdog, elastic runs (the
-mesh shape, GA campaigns), and the evaluation service's admission control and
-deadlines."""
+mesh shape, re-meshing an LM run, GA campaigns), and the evaluation service's
+admission control and deadlines."""
 
 from repro_torch.runtime.admission import (  # noqa: F401
     AdmissionConfig,
@@ -11,6 +11,7 @@ from repro_torch.runtime.admission import (  # noqa: F401
 from repro_torch.runtime.elastic import (  # noqa: F401
     DrillConfig,
     ElasticGARunner,
+    ElasticRunner,
     choose_mesh_shape,
 )
 from repro_torch.runtime.failure import FailureInjector  # noqa: F401

@@ -1,6 +1,6 @@
-"""Elastic runs: the mesh shape a device pool takes, and elastic GA campaigns with
-boundary snapshots, rollback and recovery (port of ``repro.runtime.elastic``
-but its ``ElasticRunner``).
+"""Elastic scaling: re-mesh and resume when the device pool changes, and
+elastic GA campaigns with boundary snapshots, rollback and recovery (port of
+``repro.runtime.elastic``).
 
 :func:`choose_mesh_shape` is the reference's arithmetic: the largest
 (pod?, data, model) mesh that fits a device count.  On one card it gives
@@ -19,8 +19,14 @@ Everything committed before the crash replays as a memo hit, so recovery
 trains zero duplicate rows.  :class:`DrillConfig` carries the chaos-drill
 knobs and the row telemetry.
 
-The reference's ``ElasticRunner`` (re-mesh and restore an LM run) waits
-for ``parallel/`` (ROADMAP Queue 1 item 3).
+:class:`ElasticRunner` re-meshes and restores an LM run: checkpoints hold
+plain arrays and every model names its parameters' logical axes
+(``parallel/sharding``), so recovery is (1) count the healthy devices, (2)
+pick the largest mesh for them (:func:`choose_mesh_shape`), (3) rebuild the
+shardings on a ``DeviceMesh`` of that shape, (4) restore the newest
+checkpoint onto it (``CheckpointManager.restore(shardings=...)``), (5) go on
+from the recorded step (the token stream is random-access).  ``drill`` runs
+the loop in-process; on one card it recovers onto ``(1, 1)``.
 """
 
 from __future__ import annotations
@@ -30,10 +36,12 @@ import math
 import warnings
 from typing import Callable
 
+import torch
+
 from repro_torch.runtime.failure import DeviceLossError, FailureInjector
 from repro_torch.runtime.straggler import StragglerWatchdog
 
-__all__ = ["choose_mesh_shape", "DrillConfig", "ElasticGARunner"]
+__all__ = ["choose_mesh_shape", "ElasticRunner", "DrillConfig", "ElasticGARunner"]
 
 
 def choose_mesh_shape(
@@ -72,6 +80,47 @@ def choose_mesh_shape(
             stacklevel=2,
         )
     return shape
+
+
+def device_count() -> int:
+    """The device pool: the ranks of this process's group, else the CUDA
+    devices (one card: 1)."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return max(torch.cuda.device_count(), 1)
+
+
+@dataclasses.dataclass
+class ElasticRunner:
+    """Wires mesh choice + checkpoint restore + step rebuild together.
+
+    ``make_mesh(shape)`` builds the ``DeviceMesh`` (``launch.mesh.make_mesh``);
+    ``make_shardings(mesh)`` gives the tree of ``Sharding`` the checkpoint is
+    restored onto; ``build_step(mesh)`` the step function.  The device pool
+    is :func:`device_count`."""
+
+    ckpt: object  # checkpoint.CheckpointManager
+    model_parallel: int
+    make_mesh: Callable[[tuple[int, ...]], object]
+    make_shardings: Callable[[object], dict]
+    build_step: Callable[[object], Callable]
+    devices_per_pod: int | None = None
+
+    def recover(self, healthy_devices: int):
+        shape = choose_mesh_shape(healthy_devices, self.model_parallel, self.devices_per_pod)
+        mesh = self.make_mesh(shape)
+        shardings = self.make_shardings(mesh)
+        state, manifest = self.ckpt.restore(shardings=shardings)
+        step_fn = self.build_step(mesh)
+        return mesh, state, manifest["step"], step_fn
+
+    def drill(self, state, step: int, kill_fraction: float = 0.5):
+        """Failure drill: checkpoint, 'lose' devices, recover on the rest."""
+        self.ckpt.save(step, state, block=True)
+        healthy = max(int(device_count() * (1.0 - kill_fraction)), 1)
+        return self.recover(healthy)
 
 
 @dataclasses.dataclass

@@ -28,6 +28,10 @@ def _modules():
 def test_importing_every_module_pulls_in_no_jax():
     mods = list(_modules())
     assert "repro_torch.kernels.fused_qat.ops" in mods and len(mods) > 15
+    for m in ("parallel.sharding", "parallel.local", "parallel.pipeline",
+              "launch.mesh", "launch.shapes", "launch.steps", "launch.op_cost",
+              "launch.dryrun"):
+        assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
