@@ -27,6 +27,9 @@
     python3 chip_smoke.py --mesh      # build, then phases 23-28 only (the multi-device
                                       # layer on the card's 1-rank mesh, the dry run),
                                       # and stop: no result lines
+    python3 chip_smoke.py --examples  # build, then phases 29-31 only (the twins of the
+                                      # reference's adc_codesign, quickstart and
+                                      # serve_lm examples), and stop: no result lines
     python3 chip_smoke.py --families  # build, then phases 11b and 15-17 only (the MoE,
                                       # RWKV-6 and Zamba2 families; with --profile,
                                       # profiled), and stop: no result lines
@@ -273,6 +276,28 @@ Phases 18-22 run after phase 17.
                 its four cells (three run, long_500k skipped) with per-device
                 counts; a failure fails the run.
 Phases 23-28 run after phase 22.
+29. adc_codesign
+                the twin of ``examples/adc_codesign.py`` without ``--quick``
+                (``launch.adc_codesign``): the six datasets at the paper's search
+                budget (pop 24, 16 generations, 600 steps), the gains at 5% and
+                1% (each recomputed on the host from the chosen mask through
+                ``core.area``, exactly; each chosen point within its budget),
+                level 0 kept in every front mask, exact K2/K3 launches
+                (``EvaluatorTally``); K1 once on the searched Seeds bank, its
+                levels equal to the plain version's on the CPU; the KV codebook's
+                codes and values equal to the CPU's.  The mean gains beside the
+                paper's and the CI budget's (printed, not gated).
+30. quickstart  the twin of ``examples/quickstart.py``: seeds, pop 16, 8
+                generations, 400 steps; front non-empty, level 0 kept, the
+                baseline above chance, exact K2/K3 launches; its wall seconds.
+31. serve_lm    the twin of ``examples/serve_lm.py`` (reduced, fp32, 10 requests in
+                4 slots) for yi-9b, then every other arch of ``configs/``: one set
+                of parameters drawn on the CPU serves on the card and on the
+                port's CPU path with equal requests, decode steps, first-token
+                and finish steps; K5 (fp32 variant) launched once an attention
+                call of each ``decode_step`` (whisper: self and cross; zamba2: a
+                shared-attention invocation; rwkv6: none), K4 and K1 never.
+Phases 29-31 run after phase 28.
 
 Last, ``capture_fails``: a capture made to read a value back to the host
 raises, caches no graph and falls back to nothing.  The last three lines
@@ -2636,9 +2661,11 @@ ZAMBA_DECODE = (4, 32, 32, 4096, 80)                # B, Hq, Hkv, S, d
 
 
 def _family_module(family: str):
-    from repro_torch.models import hybrid, rwkv6, transformer
+    """The module whose ``forward``/``prefill``/``decode_step`` a family's model calls."""
+    from repro_torch.models import hybrid, rwkv6, transformer, whisper
 
-    return {"dense": transformer, "moe": transformer, "ssm": rwkv6, "hybrid": hybrid}[family]
+    return {"dense": transformer, "moe": transformer, "vlm": transformer, "audio": whisper,
+            "ssm": rwkv6, "hybrid": hybrid}[family]
 
 
 def phase_family_parity(torch):
@@ -3541,6 +3568,7 @@ def phase_train_lm(torch, int8_ef: bool):
     )
     if ef:
         checks["int8_ef_loss_falls"] = ef["final_loss"] < ef["losses"][0]
+    registry.ARCHS.pop(cfg.name)  # registered for these runs only: later phases serve configs/'s
     emit("train_lm", seconds=time.perf_counter() - started, arch=cfg.name,
          n_params=train_lm.exact_n_params(cfg), dtype=cfg.dtype, global_batch=4, seq_len=128,
          steps=TRAIN_LM_STEPS, crash_at=TRAIN_LM_STEPS // 2, newest_checkpoint=newest,
@@ -4036,6 +4064,203 @@ def phase_mesh(torch, train_step_ms: float | None = None) -> dict:
             dist.destroy_process_group()
     phase_dryrun(job)
     emit("mesh", seconds=time.perf_counter() - started)
+    return launches
+
+
+# phase 29's yardsticks: the paper's mean gains at <5% drop, and the mean that
+# the campaign phase (CampaignConfig's defaults, the CI budget) gave on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md §5)
+PAPER_GAINS = {"area": 11.2, "power": 13.2}
+CI_BUDGET_GAINS = {"area": 5.564089820370899, "power": 5.388826508428816}
+
+
+def phase_adc_codesign(torch) -> dict:
+    """Phase 29: the twin of ``examples/adc_codesign.py`` without ``--quick`` on the
+    card (the six datasets at the paper's search budget, then K1 on the searched
+    Seeds bank and the KV codebook); returns its K1-K3 launches."""
+    import numpy as np
+
+    from repro_torch.configs.printed_mlp import codesign_config
+    from repro_torch.core import area
+    from repro_torch.kernels.fused_qat import ops
+    from repro_torch.kernels.pruned_quant import ops as pq
+    from repro_torch.launch import adc_codesign
+
+    # -- the main path: counts set to 0 just before, read just after
+    ops.reset_launch_counts()
+    pq.reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvaluatorTally() as tally:
+        out = adc_codesign.run(quick=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**ops.LAUNCHES, **pq.LAUNCHES}
+    # every dataset's full budget trains 600 steps a row
+    want = {**tally.expected_launches(codesign_config("seeds", full=True).max_steps),
+            "pruned_quantize": 1}
+
+    # the plain versions on the CPU, from the same draws (no launch)
+    x_cpu, levels_cpu = adc_codesign.searched_bank_levels(
+        out["searches"]["seeds"][1]["mask"], "cpu")
+    _, codes_cpu, deq_cpu = adc_codesign.kv_codebook_demo("cpu")
+
+    datasets, exact, within = {}, {}, {}
+    for ds, (res, g5, g1) in out["searches"].items():
+        conv_area, conv_power = area.conventional_cost(res.spec.n_features, 4)
+        for budget, g in ((0.05, g5), (0.01, g1)):
+            a, p = area.adc_cost(g["mask"], 4)
+            exact[f"{ds}@{budget}"] = (conv_area / max(a, 1e-12) == g["area_gain"]
+                                       and conv_power / max(p, 1e-12) == g["power_gain"])
+            # gains_at_budget falls back to the front's most accurate point when
+            # no point is within the budget; the check asks for none to need it
+            within[f"{ds}@{budget}"] = bool(g["acc"] >= res.conv_acc - budget)
+        datasets[ds] = dict(
+            conv_acc=res.conv_acc, front_size=int(res.front_acc.size),
+            acc_5pct=g5["acc"], area_gain_5pct=g5["area_gain"],
+            power_gain_5pct=g5["power_gain"], acc_1pct=g1["acc"],
+            area_gain_1pct=g1["area_gain"], power_gain_1pct=g1["power_gain"],
+            kept_levels_mean_5pct=g5["kept_levels_mean"],
+            n_evaluations=res.n_evaluations, n_memo_hits=res.n_memo_hits,
+            seconds_per_generation=[h["gen_s"] for h in res.history])
+    checks = {
+        "six_datasets": list(out["searches"]) == list(adc_codesign.PAPER_DATASETS),
+        "fronts_nonempty_finite": all(
+            r.front_acc.size >= 1 and bool(np.isfinite(r.front_acc).all())
+            and bool(np.isfinite(r.front_area).all()) for r, _, _ in out["searches"].values()),
+        "level0_kept": all(bool(r.front_masks[:, :, 0].all())
+                           for r, _, _ in out["searches"].values()),
+        "within_budget": all(within.values()),
+        "gains_recomputed_exactly": all(exact.values()),
+        "launch_counts": launches == want,
+        "k1_equals_plain": torch.equal(out["x"].cpu(), x_cpu)
+        and torch.equal(out["levels"].cpu(), levels_cpu),
+        "kv_codebook_equals_cpu": out["codes"].is_cuda
+        and torch.equal(out["codes"].cpu(), codes_cpu)
+        and torch.equal(out["deq"].cpu(), deq_cpu),
+    }
+    print("\n".join(out["lines"]), flush=True)
+    emit("adc_codesign", budget="full (pop 24, 16 generations, step_scale 1.0, 600 steps)",
+         seconds=wall, datasets=datasets,
+         mean_gain_5pct={"area": out["mean_area_gain"], "power": out["mean_power_gain"]},
+         paper_mean_gain=PAPER_GAINS, ci_budget_mean_gain=CI_BUDGET_GAINS,
+         n_evaluations=sum(d["n_evaluations"] for d in datasets.values()),
+         n_memo_hits=sum(d["n_memo_hits"] for d in datasets.values()),
+         k1_levels_row0=out["levels"][0].tolist(), kv_err=out["kv_err"],
+         graph_stats={k: tally.total(k) for k in tally.stats[0]},
+         launches=launches, expected_launches=want, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"adc_codesign checks failed: {checks}")
+    return launches
+
+
+def phase_quickstart(torch) -> dict:
+    """Phase 30: the twin of ``examples/quickstart.py`` on the card; returns its
+    K2/K3 launches."""
+    from repro_torch.kernels.fused_qat import ops
+    from repro_torch.launch import quickstart
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with EvaluatorTally() as tally:
+        out = quickstart.run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    res, want = out["result"], tally.expected_launches(out["cfg"].max_steps)
+    checks = {
+        "front_nonempty": res.front_acc.size >= 1,
+        "level0_kept": bool(res.front_masks[:, :, 0].all()),
+        "baseline_above_chance": res.conv_acc > 1.0 / res.spec.n_classes,
+        "launch_counts": launches == want,
+    }
+    print("\n".join(out["lines"]), flush=True)
+    emit("quickstart", seconds=wall, conv_acc=res.conv_acc,
+         front_size=int(res.front_acc.size), gains_5pct={
+             k: out["gains"][k] for k in ("acc", "area_gain", "power_gain")},
+         n_evaluations=res.n_evaluations, n_memo_hits=res.n_memo_hits,
+         seconds_per_generation=[h["gen_s"] for h in res.history],
+         launches=launches, expected_launches=want, checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"quickstart checks failed: {checks}")
+    return launches
+
+
+def _attention_calls_a_step(cfg) -> int:
+    """K5 calls in one ``decode_step`` of a family: a layer's self-attention
+    (whisper: self and cross), zamba2's shared-attention invocations, rwkv6 none."""
+    if cfg.family == "audio":
+        return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def phase_serve_lm(torch) -> dict:
+    """Phase 31: the twin of ``examples/serve_lm.py`` for yi-9b, then every other
+    arch of ``configs/``, reduced and in fp32: one set of parameters drawn on the
+    CPU serves on the card and on the port's CPU path; returns the K5 launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve_lm
+    from repro_torch.models import build_model
+
+    fields = ("requests", "decode_steps", "first_token_step", "finish_step")
+    started, total, per_arch = time.perf_counter(), 0, {}
+    threads = torch.get_num_threads()
+    for arch in ("yi-9b", *(a for a in registry.ARCHS if a != "yi-9b")):
+        cfg = registry.reduced(registry.get(arch))
+        params = {"cpu": build_model(cfg).init_params(torch.Generator().manual_seed(0))}
+        params["cuda"] = {k: v.to("cuda") for k, v in params["cpu"].items()}
+        module, calls = _family_module(cfg.family), {"decode_step": 0}
+        orig = _count_calls(module, "decode_step", calls)
+        try:
+            # -- the main path: counts set to 0 just before, read just after
+            read_counts = _reset_all_counts()
+            t0 = time.perf_counter()
+            card = serve_lm.run(arch, "cuda", params=params["cuda"])
+            card_s = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            module.decode_step = orig
+        torch.set_num_threads(1)  # tiny CPU tensors: one intra-op thread is faster
+        try:
+            cpu = serve_lm.run(arch, "cpu", params=params["cpu"])
+        finally:
+            torch.set_num_threads(threads)
+        sc = serve_lm.config(arch)
+        k5 = _attention_calls_a_step(cfg) * calls["decode_step"]
+        checks = {
+            "card_equals_cpu": all(card[f] == cpu[f] for f in fields),
+            "decode_calls": calls["decode_step"]
+            == sc.n_requests * sc.prompt_len + card["decode_steps"],
+            "k5_launches": launches["decode_attention"] == k5,
+            "no_k4_no_k1": launches["flash_attention"] == 0
+            and launches["pruned_quantize"] == 0,
+        }
+        total += launches["decode_attention"]
+        per_arch[arch] = dict(family=cfg.family, seconds=card_s, tokens_per_s=card["tokens_per_s"],
+                              decode_steps=card["decode_steps"],
+                              decode_calls=calls["decode_step"],
+                              k5_launches=launches["decode_attention"], expected_k5=k5,
+                              checks=checks)
+        if arch == "yi-9b":
+            print("\n".join(card["lines"]), flush=True)
+        if not all(checks.values()):
+            emit("serve_lm", arch=arch, **per_arch[arch], ok=False)
+            raise SystemExit(f"serve_lm checks failed for {arch}: {checks}")
+    emit("serve_lm", seconds=time.perf_counter() - started, archs=per_arch,
+         k5_launches=total, ok=True)
+    return {"decode_attention": total}
+
+
+def phase_examples(torch) -> dict:
+    """Phases 29-31: the twins of the reference's three remaining examples;
+    returns their launches."""
+    started = time.perf_counter()
+    launches = phase_adc_codesign(torch)
+    for kname, n in phase_quickstart(torch).items():
+        launches[kname] += n
+    launches.update(phase_serve_lm(torch))
+    emit("examples", seconds=time.perf_counter() - started)
     return launches
 
 
@@ -4601,6 +4826,9 @@ def main() -> int:
     if "--mesh" in args:  # the multi-device layer alone: build, run phases 23-28, stop
         phase_mesh(torch)
         return 0
+    if "--examples" in args:  # the three example twins alone: build, run phases 29-31, stop
+        phase_examples(torch)
+        return 0
     if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
         phase_service(torch, profile=profile)
         return 0
@@ -4646,6 +4874,8 @@ def main() -> int:
             launches[kname] = launches.get(kname, 0) + n
     train_step_ms = phase_train(torch, profile)
     for kname, n in phase_mesh(torch, train_step_ms).items():
+        launches[kname] = launches.get(kname, 0) + n
+    for kname, n in phase_examples(torch).items():
         launches[kname] = launches.get(kname, 0) + n
 
     train = kern[128]

@@ -30,7 +30,8 @@ def test_importing_every_module_pulls_in_no_jax():
     assert "repro_torch.kernels.fused_qat.ops" in mods and len(mods) > 15
     for m in ("parallel.sharding", "parallel.local", "parallel.pipeline",
               "launch.mesh", "launch.shapes", "launch.steps", "launch.op_cost",
-              "launch.dryrun"):
+              "launch.dryrun", "launch.adc_codesign", "launch.quickstart",
+              "launch.serve_lm"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
