@@ -36,6 +36,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import area as area_model
 from repro_torch.core import chromosome, hybrid, memo_store, nsga2, qat, surrogate, trainer
@@ -43,6 +44,11 @@ from repro_torch.data import uci_synth
 from repro_torch.device import resolve_device
 from repro_torch.runtime import elastic as elastic_rt
 from repro_torch.runtime import failure as failure_rt
+
+# the spans of a search (``repro_torch.spans``): the whole search, building
+# its evaluators, genes to rows, the area/power proxy
+SPAN_SEARCH, SPAN_BUILD = "codesign.search", "codesign.build"
+SPAN_DECODE, SPAN_AREA = "codesign.decode", "codesign.area"
 
 __all__ = [
     "CodesignConfig",
@@ -354,18 +360,20 @@ def _problem(cfg: CodesignConfig):
     return split, spec, mlp_cfg, eval_cfg
 
 
+@spans.spanned(SPAN_SEARCH)
 def run_codesign(cfg: CodesignConfig) -> CodesignResult:
     cfg.validate()
-    (X_tr, y_tr, X_te, y_te), spec, mlp_cfg, eval_cfg = _problem(cfg)
+    with spans.span(SPAN_BUILD):
+        (X_tr, y_tr, X_te, y_te), spec, mlp_cfg, eval_cfg = _problem(cfg)
+        # evaluators live in a mutable dict so the recovery path can swap in
+        # rebuilt ones mid-campaign: every callback reads it at call time
+        evaluators: dict = {
+            "pop": trainer.make_population_evaluator(
+                X_tr, y_tr, X_te, y_te, mlp_cfg, eval_cfg, device=cfg.device
+            )
+        }
     axes = cfg.axes()
     n_layers = len(mlp_cfg.layer_sizes) - 1
-    # evaluators live in a mutable dict so the recovery path can swap in
-    # rebuilt ones mid-campaign: every callback reads it at call time
-    evaluators: dict = {
-        "pop": trainer.make_population_evaluator(
-            X_tr, y_tr, X_te, y_te, mlp_cfg, eval_cfg, device=cfg.device
-        )
-    }
 
     def rebuild_evaluators(n_devices: int | None = None) -> None:
         """Fresh evaluators (empty graph caches) on the first ``n_devices`` devices."""
@@ -374,7 +382,9 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
 
     conv_area, conv_power = area_model.conventional_cost(spec.n_features, cfg.adc_bits)
     cost_batch, norm_area, _ = _make_cost_batch(axes, cfg.adc_bits, mlp_cfg.layer_sizes)
+    cost_batch = spans.spanned(SPAN_AREA)(cost_batch)
 
+    @spans.spanned(SPAN_DECODE)
     def decode(mask_genes: np.ndarray, cat_genes: np.ndarray) -> dict:
         return chromosome.decode_batch(mask_genes, cat_genes, spec.n_features, cfg.adc_bits,
                                        axes=axes, n_layers=n_layers)
@@ -418,10 +428,11 @@ def run_codesign(cfg: CodesignConfig) -> CodesignResult:
 
     def make_stacked_evaluate():
         """Cross-island objective callback: every island's batch in one population call."""
-        evaluators["islands"] = trainer.make_island_evaluator(
-            X_tr, y_tr, X_te, y_te, mlp_cfg, eval_cfg, num_islands=cfg.num_islands,
-            device=cfg.device,
-        )
+        with spans.span(SPAN_BUILD):
+            evaluators["islands"] = trainer.make_island_evaluator(
+                X_tr, y_tr, X_te, y_te, mlp_cfg, eval_cfg, num_islands=cfg.num_islands,
+                device=cfg.device,
+            )
 
         def evaluate_stacked(batches):
             decs = [decode(m, c) for m, c in batches]

@@ -68,7 +68,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 
+from repro_torch import spans
 from repro_torch.core import evalpipe
+
+# the spans of an engine's phases (``repro_torch.spans``): variation, the
+# memo plan (and screen), the memo commit and selection
+SPAN_VARIATION, SPAN_PLAN, SPAN_COMMIT = "ga.variation", "ga.plan", "ga.commit"
 
 __all__ = [
     "fast_non_dominated_sort",
@@ -445,6 +450,7 @@ class NSGA2:
     # phases — the RNG stream is consumed in the same order as the
     # original monolithic loop, so results are bit-for-bit unchanged.
 
+    @spans.spanned(SPAN_VARIATION)
     def setup_begin(self) -> tuple[np.ndarray, np.ndarray]:
         """Draw the generation-0 pool; returns its (masks, cats)."""
         pop = self._init_population()
@@ -461,6 +467,7 @@ class NSGA2:
         self._pending = (pop.masks, pop.cats)
         return pop.masks, pop.cats
 
+    @spans.spanned(SPAN_COMMIT)
     def setup_commit(self, objs: np.ndarray) -> None:
         """Select generation 0 from the evaluated seed pool."""
         masks, cats = self._pending
@@ -477,6 +484,7 @@ class NSGA2:
         masks, cats = self.setup_begin()
         self.setup_commit(self._evaluate(masks, cats))
 
+    @spans.spanned(SPAN_VARIATION)
     def step_begin(self) -> tuple[np.ndarray, np.ndarray]:
         """Variation phase: returns the parent+child pool to evaluate."""
         self._t_gen = time.perf_counter()
@@ -502,6 +510,7 @@ class NSGA2:
         self._pending = (allm, allc)
         return allm, allc
 
+    @spans.spanned(SPAN_COMMIT)
     def step_commit(self, allo: np.ndarray, eval_s: float) -> dict:
         """Selection + telemetry on the evaluated pool from step_begin."""
         allm, allc = self._pending
@@ -548,6 +557,7 @@ class NSGA2:
             return self.cfg.n_generations <= 0
         return self.gen >= self.cfg.n_generations - 1
 
+    @spans.spanned(SPAN_PLAN)
     def plan_pool(
         self,
         masks: np.ndarray,
@@ -604,6 +614,7 @@ class NSGA2:
                 screen_info=decision.telemetry,
             )
 
+    @spans.spanned(SPAN_COMMIT)
     def commit_pool(
         self, plan: "evalpipe.PoolPlan", objs: np.ndarray | None
     ) -> np.ndarray:

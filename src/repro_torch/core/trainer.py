@@ -41,6 +41,10 @@ captures the same launches, so no bit changes.  One thread trains an
 evaluator: the launch counters below are exact only while no other thread
 launches K2/K3 during a capture.
 
+**Spans** (``repro_torch.spans``, nothing while recording is off): a call
+records the draws, the staging of host tensors and copies, each new graph's
+warm-up and capture, and the launches.
+
 ``graph=None`` means a graph on the card and the plain loop on the CPU;
 ``graph=False`` on the card is an explicit eager run (for A/B timing);
 ``graph=True`` on the CPU raises.  A failed capture or replay raises and
@@ -67,6 +71,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import chromosome, qat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qat import ops as qat_ops
@@ -80,6 +85,11 @@ __all__ = [
     "make_island_evaluator",
     "device_count",
 ]
+
+# the spans of an evaluator call (``repro_torch.spans``): the CPU draws; host
+# tensors, schedules and copies in; warm-up and capture; the launches
+SPAN_DRAW, SPAN_STAGE = "trainer.draw", "trainer.stage"
+SPAN_CAPTURE, SPAN_ENQUEUE = "trainer.capture", "trainer.enqueue"
 
 # eager steps a capture runs first on a side stream (lazy initialisation of
 # the autograd engine and the allocator), as torch.cuda.graphs documents
@@ -113,6 +123,7 @@ def _extra_names(cfg: EvalConfig) -> tuple[str, ...]:
     return tuple(n for ax, n in (("act", "act_sel"), ("wprec", "wprec")) if ax in axes)
 
 
+@spans.spanned(SPAN_DRAW)
 def draw_rows(seeds, cfg: EvalConfig, mlp_cfg: qat.MLPConfig, n_train: int):
     """Initial parameters and minibatch indices of each row, on the CPU.
 
@@ -290,77 +301,81 @@ class _Program:
         ``slots`` the bucket's buffers, holding the trained parameters until
         the next call on that bucket.  Nothing is read back to the host.
         """
-        cfg = self.cfg
-        names = _extra_names(cfg)
-        if len(extra) != len(names):
-            raise TypeError(f"genome axes {tuple(cfg.genome_axes)} expect {len(names)} "
-                            f"extra row arrays, got {len(extra)}")
-        masks = _host(masks, torch.bool)
-        P = masks.shape[0]
-        if P < 1:
-            raise ValueError("an evaluator call needs at least one row")
-        n = self.bucket(P)
-        self.stats["calls"] += 1
-        bs_h = _host(bs, torch.int64)
-        lr_h, gate_h = _schedules(bs_h, _host(ep, torch.int64), _host(lr, torch.float32),
-                                  self.n_train, cfg)
-        w_h = (torch.arange(cfg.max_batch) < bs_h[:, None]).to(torch.float32)
-        rows = {
-            "masks": masks, "wb": _host(wb, torch.float32), "ab": _host(ab, torch.float32),
-            # integer-valued: exact in any order
-            "w": w_h, "denom": torch.clamp(w_h.sum(-1), min=1.0),
-        }
-        for name, v in zip(names, extra):
-            rows[name] = _host(v, torch.int64 if name == "act_sel" else torch.float32)
-        idx = _host(idx, torch.int64)
-        if idx.shape[1:] != (cfg.max_steps, cfg.max_batch):
-            raise ValueError(f"idx is {tuple(idx.shape)}, expected (P, {cfg.max_steps}, "
-                             f"{cfg.max_batch})")
-        idx = self._put(_pad_rows(idx, n))
-        lr_d = self._put(_pad_rows(lr_h, n))
-        gate_d = self._put(_pad_rows(gate_h, n))
-        s = self.slots.get(n)
-        if s is None:
-            s = self.slots[n] = _Slots(n, self.mlp_cfg, cfg, self.dev)
-        for k, v in rows.items():
-            self._copy(getattr(s, k), _pad_rows(v, n))
-        lengths = self._block_lengths()
+        with spans.span(SPAN_STAGE):
+            cfg = self.cfg
+            names = _extra_names(cfg)
+            if len(extra) != len(names):
+                raise TypeError(f"genome axes {tuple(cfg.genome_axes)} expect {len(names)} "
+                                f"extra row arrays, got {len(extra)}")
+            masks = _host(masks, torch.bool)
+            P = masks.shape[0]
+            if P < 1:
+                raise ValueError("an evaluator call needs at least one row")
+            n = self.bucket(P)
+            self.stats["calls"] += 1
+            bs_h = _host(bs, torch.int64)
+            lr_h, gate_h = _schedules(bs_h, _host(ep, torch.int64), _host(lr, torch.float32),
+                                      self.n_train, cfg)
+            w_h = (torch.arange(cfg.max_batch) < bs_h[:, None]).to(torch.float32)
+            rows = {
+                "masks": masks, "wb": _host(wb, torch.float32), "ab": _host(ab, torch.float32),
+                # integer-valued: exact in any order
+                "w": w_h, "denom": torch.clamp(w_h.sum(-1), min=1.0),
+            }
+            for name, v in zip(names, extra):
+                rows[name] = _host(v, torch.int64 if name == "act_sel" else torch.float32)
+            idx = _host(idx, torch.int64)
+            if idx.shape[1:] != (cfg.max_steps, cfg.max_batch):
+                raise ValueError(f"idx is {tuple(idx.shape)}, expected (P, {cfg.max_steps}, "
+                                 f"{cfg.max_batch})")
+            idx = self._put(_pad_rows(idx, n))
+            lr_d = self._put(_pad_rows(lr_h, n))
+            gate_d = self._put(_pad_rows(gate_h, n))
+            s = self.slots.get(n)
+            if s is None:
+                s = self.slots[n] = _Slots(n, self.mlp_cfg, cfg, self.dev)
+            for k, v in rows.items():
+                self._copy(getattr(s, k), _pad_rows(v, n))
+            lengths = self._block_lengths()
 
-        def load_block(t0: int, m: int) -> None:
-            s.idx[:, :m].copy_(idx[:, t0:t0 + m])
-            s.lr[:, :m].copy_(lr_d[:, t0:t0 + m])
-            s.gate[:, :m].copy_(gate_d[:, t0:t0 + m])
+            def load_block(t0: int, m: int) -> None:
+                s.idx[:, :m].copy_(idx[:, t0:t0 + m])
+                s.lr[:, :m].copy_(lr_d[:, t0:t0 + m])
+                s.gate[:, :m].copy_(gate_d[:, t0:t0 + m])
 
-        def run(m: int) -> None:
-            _train_block(self.X_tr, self.y_tr, self.mlp_cfg, cfg.momentum, s, m)
+            def run(m: int) -> None:
+                _train_block(self.X_tr, self.y_tr, self.mlp_cfg, cfg.momentum, s, m)
 
+            if self.graph:
+                # capture before the parameters are loaded: the warm-up steps
+                # train on the buffers, which are then reset
+                load_block(0, lengths[0])
         if self.graph:
-            # capture before the parameters are loaded: the warm-up steps
-            # train on the buffers, which are then reset
-            load_block(0, lengths[0])
             for m in sorted(set(lengths)):
                 if (n, m) not in self.blocks:
-                    self.blocks[(n, m)] = _Block(run, m, self.pool)
+                    with spans.span(SPAN_CAPTURE):
+                        self.blocks[(n, m)] = _Block(run, m, self.pool)
                     self.stats["captures"] += 1
                     self.stats["warmup_steps"] += WARMUP_STEPS
-        with torch.no_grad():
+        with spans.span(SPAN_STAGE), torch.no_grad():
             for k, p in s.params.items():
                 self._copy(p, _pad_rows(_host(params0[k], torch.float32), n))
                 s.vel[k].zero_()
-        t0 = 0
-        for m in lengths:
-            load_block(t0, m)
-            if self.graph:
-                self.blocks[(n, m)].replay()
-                self.stats["replays"] += 1
-            else:
-                run(m)
-            t0 += m
-        with torch.no_grad():
-            logits = qat.mlp_forward(s.params, self.X_te.expand(n, -1, -1), self.mlp_cfg,
-                                     s.masks, s.wb, s.ab, act_sel=s.act_sel,
-                                     layer_weight_bits=s.wprec)
-            acc = qat.accuracy(logits, self.y_te.expand(n, -1))
+        with spans.span(SPAN_ENQUEUE):
+            t0 = 0
+            for m in lengths:
+                load_block(t0, m)
+                if self.graph:
+                    self.blocks[(n, m)].replay()
+                    self.stats["replays"] += 1
+                else:
+                    run(m)
+                t0 += m
+            with torch.no_grad():
+                logits = qat.mlp_forward(s.params, self.X_te.expand(n, -1, -1), self.mlp_cfg,
+                                         s.masks, s.wb, s.ab, act_sel=s.act_sel,
+                                         layer_weight_bits=s.wprec)
+                acc = qat.accuracy(logits, self.y_te.expand(n, -1))
         return acc, s, P
 
 
@@ -633,7 +648,8 @@ class _GridPrograms:
             masks, wb, ab, bs, ep, lr, _, *extra = (cut(np.asarray(a)) for a in rows)
             acc, _, n = prog.launch(masks, wb, ab, bs, ep, lr,
                                     {k: cut(v) for k, v in params0.items()}, cut(idx), extra)
-            pending.append((blk, _to_host(acc[:n], prog.dev)))
+            with spans.span(SPAN_ENQUEUE):
+                pending.append((blk, _to_host(acc[:n], prog.dev)))
 
         def resolve() -> np.ndarray:
             out = np.empty(shape, np.float32)

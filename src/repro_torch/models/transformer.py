@@ -63,6 +63,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
@@ -388,6 +389,13 @@ def _head(x, rest, cfg: ModelConfig):
 # forward / prefill (one body) and decode
 # ---------------------------------------------------------------------------
 
+# the spans of a full sequence (``repro_torch.spans``): a prefill; its inputs
+# (embeddings, the patches through the ADC frontend, RoPE, the cache); each
+# decoder layer; the final norm and lm head.  ``decode_step`` records none
+SPAN_PREFILL, SPAN_INPUTS = "model.prefill", "model.inputs"
+SPAN_LAYER, SPAN_HEAD = "model.layer", "model.head"
+
+
 def _patches(pe, rest, cfg: ModelConfig, dtype):
     """(B, P, d) fp32 patch embeddings -> projected (B, P, d) in ``dtype``."""
     if cfg.use_pruned_frontend:
@@ -398,24 +406,30 @@ def _patches(pe, rest, cfg: ModelConfig, dtype):
 
 def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: bool,
                    train: bool = False):
-    stacked, rest = _split_layer_params(params)
-    x = act_constrain(L.embed(rest["embed"], tokens), lm_act_axes(cfg.n_heads))  # (B,S,d)
-    if cfg.family == "vlm" and patch_embeds is not None:
-        x = torch.cat([_patches(patch_embeds, rest, cfg, x.dtype), x], dim=1)
-    B, S = x.shape[:2]
-    rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
-    plain = _choose_attn(cfg, S)
-    cache = None
-    if keep_cache and not is_dtensor(x):
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-        cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
-    states = StateWriter(cache, keep_cache and cache is None)
-    for i, lp in enumerate(unstack(stacked)):
-        x, (k, v) = remat(_layer, x, lp, cfg, rope, plain, train, train=train, cfg=cfg)
-        if keep_cache:
-            states.put(i, k=k, v=v)
-    logit_axes = ("batch", lm_act_axes(cfg.n_heads)[1], "vocab")
-    return act_constrain(_head(x, rest, cfg), logit_axes), states.done() if keep_cache else None
+    with spans.span(SPAN_INPUTS):
+        stacked, rest = _split_layer_params(params)
+        x = act_constrain(L.embed(rest["embed"], tokens), lm_act_axes(cfg.n_heads))  # (B,S,d)
+        if cfg.family == "vlm" and patch_embeds is not None:
+            x = torch.cat([_patches(patch_embeds, rest, cfg, x.dtype), x], dim=1)
+        B, S = x.shape[:2]
+        rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
+        plain = _choose_attn(cfg, S)
+        cache = None
+        if keep_cache and not is_dtensor(x):
+            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+            cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
+        states = StateWriter(cache, keep_cache and cache is None)
+        layers = unstack(stacked)
+    for i, lp in enumerate(layers):
+        # around the call, never inside _layer: a checkpointed recompute records nothing
+        with spans.span(SPAN_LAYER):
+            x, (k, v) = remat(_layer, x, lp, cfg, rope, plain, train, train=train, cfg=cfg)
+            if keep_cache:
+                states.put(i, k=k, v=v)
+    with spans.span(SPAN_HEAD):
+        logit_axes = ("batch", lm_act_axes(cfg.n_heads)[1], "vocab")
+        logits = act_constrain(_head(x, rest, cfg), logit_axes)
+    return logits, states.done() if keep_cache else None
 
 
 def forward(params, tokens, cfg: ModelConfig, patch_embeds=None,
@@ -435,6 +449,7 @@ def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
     return L.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
 
+@spans.spanned(SPAN_PREFILL)
 def prefill(params, tokens, cfg: ModelConfig, patch_embeds=None):
     """Full-sequence forward that also returns the KV cache.
 
