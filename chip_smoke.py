@@ -7,11 +7,12 @@
                                       # a wave of the evaluation service,
                                       # and decode steps and a prefill (or encode) of
                                       # each served model (gzipped traces to OUT)
-    python3 chip_smoke.py --step-ab   # build, phase 4, then the population step and a
-                                      # co-design generation timed eager and from the
-                                      # CUDA graph in turns (the graph at block lengths
-                                      # S_CANDIDATES), profiles of both, and a capture
-                                      # made to fail; no result lines
+    python3 chip_smoke.py --step-ab   # build, phases 3b and 4, then the population
+                                      # step timed as the plain chain and fused, eager
+                                      # and from the CUDA graph, in turns (the fused
+                                      # graph at block lengths S_CANDIDATES), searches
+                                      # with either step, profiles, and a capture made
+                                      # to fail; no result lines
     python3 chip_smoke.py --service   # build, then phase 6d only (the evaluation
                                       # service; with --profile, its wave profiled),
                                       # and stop: no result lines
@@ -59,7 +60,8 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 repository's sources, one nvcc per source, all at once; then
                 one ``ptxas`` line a library: each kernel's registers, static
                 shared memory and spills, from ``nvcc -Xptxas -v``; a spill in
-                a kernel of K1's or K2's register path (N = 4) fails the run.
+                a kernel of K1's or K2's register path (N = 4) or in a head
+                instance of the training step with fixed widths fails the run.
 3. kernels      K2 (forward) and K3 (backward) of the fused pruned-ADC QAT layer
                 against their plain PyTorch versions on the card, at the main
                 path's shapes (P=24 rows, C=21 inputs, F=5 hidden, B=128 and
@@ -76,8 +78,20 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 come after phase 6 (``qat_profiler``): the profiler leaves
                 kernel launches slower on the host, and phases 4-6 time a
                 host-bound loop.
+3b. qat_step   (after phase 6d in the default run: it opens profiler
+                sessions; first with --step-ab)
+                the training step's kernels (``ops.qat_step``: qat_step_prep,
+                K2, qat_step_head, K3, qat_step_update) against the plain chain
+                they replace (``trainer._chain_step``) and its written-out
+                backward (``ref.qat_step``),
+                bit for bit over 10 steps, at P = 24 and 5 on cardio and at
+                the other datasets' topologies; a row alone equals it in the
+                batch; five device kernels a step; a graphed block of 10 steps
+                fused and plain timed by CUDA events; each new kernel's time,
+                bound and plain ops.
 4. placement    the population step replayed from CUDA graphs (blocks of
-                ``EvalConfig.block_steps`` steps) against the eager loop,
+                ``EvalConfig.block_steps`` steps) against the eager loop and
+                against the graphed plain chain (``trainer._chain_step``),
                 parameters and accuracies ``torch.equal``, at P = 24 and at
                 P = 5 (bucket 8); a row trained alone and inside a batch of
                 24 gives the same bits; two runs of one batch give the same
@@ -514,7 +528,7 @@ def phase_kernels(torch):
         dx, dw = ops.fused_backward(x, thr, ids, w, g, SCALE)
         torch.cuda.synchronize()
         launches_counted = {k: ops.LAUNCHES[k] - before[k] for k in before} == {
-            "fused_qat_forward": 1, "fused_qat_backward": 1}
+            **dict.fromkeys(before, 0), "fused_qat_forward": 1, "fused_qat_backward": 1}
         fwd = lambda: ops.fused_forward(x, thr, ids, w, b, SCALE)  # noqa: E731
         y2 = fwd()
         y_alone = [ops.fused_forward(x[p:p + 1], thr[p:p + 1], ids[p:p + 1], w[p:p + 1],
@@ -635,6 +649,199 @@ def phase_qat_profiler(torch) -> dict:
     return out
 
 
+def _step_buckets():
+    """The fused step's test inputs (``tests/_torch_qat_step.py``): a bucket's
+    buffers drawn from a seed, copies, rows, the comparison."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_qat_step
+
+    return _torch_qat_step
+
+
+STEP_KERNELS = ("qat_step_prep", "qat_step_head", "qat_step_update")
+STEP_CASES = (("cardio", 24), ("cardio", 5), ("balance", 24), ("breast_cancer", 8),
+              ("mammographic", 8), ("seeds", 8), ("vertebral3", 8))
+STEP_GRAPH_STEPS = 10  # steps of the graphed block the step is timed in (block_steps)
+STEP_GRAPH_REPLAYS = 50
+
+
+def step_bounds(P: int, B: int, sizes) -> dict[str, tuple[float, str]]:
+    """Least time of each of the step's kernels at P rows of an MLP of
+    ``sizes``: each input byte read once and each output byte written once,
+    against fp32 operations at peak (the head's dense layers forward, dw, dh
+    and its cross-entropy; prep's quantizer, ~12 ops a weight; update's 5 a
+    parameter)."""
+    C, H = sizes[0], sizes[1]
+    n_w = sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    n_p = n_w + sum(sizes[1:])
+    rest = [(a, b) for a, b in zip(sizes[1:-1], sizes[2:])]
+    n_rest = sum(a * b + b for a, b in rest)
+    K = sizes[-1]
+    # prep: indices (int64), the gathered inputs read and written, labels
+    # read (int64) and written (int32), weights read and written, the width
+    prep = roofline(P * (B * 8 + 2 * B * C * 4 + B * (8 + 4) + 2 * n_w * 4 + 4),
+                    12.0 * P * n_w, FP32_FLOPS)
+    # head: z1 read and g0 written, the later layers' weights read and
+    # gradients written, a label (int32) and a loss weight a sample, denom
+    # and the width, db0
+    head = roofline(P * (B * H * 4 * 2 + n_rest * 4 * 2 + B * (4 + 4) + 2 * 4 + H * 4),
+                    P * B * (6.0 * sum(a * b for a, b in rest) + 8 * sum(sizes[1:-1]) + 8 * K),
+                    FP32_FLOPS)
+    update = roofline(P * (5 * n_p * 4 + 8), 5.0 * P * n_p, FP32_FLOPS)
+    return {"qat_step_prep": prep, "qat_step_head": head, "qat_step_update": update}
+
+
+def phase_qat_step(torch) -> dict:
+    """The training step's kernels (``ops.qat_step``: qat_step_prep, K2,
+    qat_step_head, K3, qat_step_update) against the plain chain they replace
+    (``trainer._chain_step``) and the backward written out
+    (``ref.qat_step`` with K2/K3), bit for bit over a block of steps, at the
+    cases of STEP_CASES; a row alone equals it in the batch; five device
+    kernels a step (the profiler); then at P = 24 cardio rows, a graphed
+    block of STEP_GRAPH_STEPS steps fused and plain timed by CUDA events, and
+    each new kernel's time (the profiler) beside its bound and the plain ops
+    it replaces.  Returns each kernel's row of the ``kernels`` line, with the
+    largest gap the cases read between fused and chain (parameters and
+    velocities) as its ``max_abs_err``."""
+    import dataclasses
+
+    from repro_torch.core import qat, trainer
+    from repro_torch.core.sums import fixed_sum
+    from repro_torch.kernels.fused_qat import ops, ref
+
+    h = _step_buckets()
+    mom, dev = 0.9, torch.device("cuda")
+    k2_k3 = (ops.fused_forward, ops.fused_backward)
+    checks, cases = {}, []
+    for name, n in STEP_CASES:
+        X_tr, y_tr, sizes = h.dataset(name, dev)
+        mcfg, s = h.bucket(sizes, n, X_tr.shape[0], seed=n, device=dev)
+        fused, plain, emul = h.clone(s), h.clone(s), h.clone(s)
+        for j in range(h.STEPS):
+            ops.qat_step(X_tr, y_tr, fused, j, mom)
+            trainer._chain_step(X_tr, y_tr, mcfg, mom, plain, j)
+            ref.qat_step(X_tr, y_tr, emul, j, mom, first_layer=k2_k3)
+        torch.cuda.synchronize()
+        gap = max((a[k] - b[k]).abs().max().item() for a, b in
+                  ((fused.params, plain.params), (fused.vel, plain.vel)) for k in s.params)
+        cases.append({"dataset": name, "P": n, "sizes": sizes, "max_abs_gap": gap,
+                      "plans": {"prep": dataclasses.asdict(ops.prep_plan(n, 128, sizes)),
+                                "head": dataclasses.asdict(ops.head_plan(n, 128, sizes)),
+                                "update": dataclasses.asdict(ops.update_plan(n, sizes))}})
+        checks[f"{name}_p{n}_fused_equals_plain"] = h.same(fused, plain)
+        checks[f"{name}_p{n}_emulation_equals_plain"] = h.same(emul, plain)
+    X_tr, y_tr, sizes = h.dataset("cardio", dev)
+    mcfg, s = h.bucket(sizes, P, X_tr.shape[0], seed=3, device=dev)
+    batch = h.clone(s)
+    for j in range(h.STEPS):
+        ops.qat_step(X_tr, y_tr, batch, j, mom)
+    alone_ok = True
+    for p in (0, P // 2, P - 1):
+        one = h.rows(s, slice(p, p + 1))
+        for j in range(h.STEPS):
+            ops.qat_step(X_tr, y_tr, one, j, mom)
+        alone_ok &= h.same(one, h.rows(batch, slice(p, p + 1)))
+    checks["alone_equals_batch"] = alone_ok
+
+    # steps under the profiler, one session each: the fused step's device
+    # kernels (their count a step, rounded: a lost record does not turn five
+    # into four; each new kernel's median time) and the plain chain's
+    work = h.clone(s)
+    n_prof = 20
+    events = _profiled_kernels(torch, lambda: ops.qat_step(X_tr, y_tr, work, 0, mom),
+                               n_prof, "")
+    names = sorted({e.name[:80] for e in events})
+    fused_k = {"records": len(events), "calls": n_prof, "names": names,
+               "kernels_per_call": round(len(events) / n_prof)}
+    chain = lambda X, y, b, j, m: trainer._chain_step(X, y, mcfg, m, b, j)  # noqa: E731
+    plain_k = device_kernels(torch, lambda: chain(X_tr, y_tr, work, 0, mom), n=5)
+    want_names = ("fused_qat_fwd_kernel", "fused_qat_bwd_kernel", *(f"{k}_kernel"
+                                                                    for k in STEP_KERNELS))
+    checks["five_kernels_a_step"] = (fused_k["kernels_per_call"] == 5 and len(names) == 5
+                                     and all(any(w in nm for nm in names) for w in want_names))
+
+    # a graphed block of steps, fused and plain, timed by CUDA events
+    def graphed(step):
+        bucket = h.clone(s)
+        run = lambda: [step(X_tr, y_tr, bucket, j, mom)  # noqa: E731
+                       for j in range(STEP_GRAPH_STEPS)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            run()
+        return graph
+
+    graphs = {"fused": graphed(ops.qat_step), "plain": graphed(chain)}
+    step_ms = {k: [] for k in graphs}
+    for name in ["plain", "fused", "fused", "plain"] * 3:
+        g = graphs[name]
+        g.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(STEP_GRAPH_REPLAYS):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms[name].append(start.elapsed_time(end) / (STEP_GRAPH_REPLAYS * STEP_GRAPH_STEPS))
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+
+    # each new kernel's time, bound, and the plain ops it replaces
+    bounds = step_bounds(P, 128, sizes)
+    kernel_ms_ = {k: statistics.median(e.time_range.elapsed_us() for e in events
+                                       if f"{k}_kernel" in e.name) / 1e3 for k in bounds}
+    it = s.idx[:, 0]
+    wb = s.wb.view(P, 1, 1)
+    ab = s.ab.view(P, 1, 1)
+    scale = 1.0 / (1 << mcfg.adc_bits)
+
+    def plain_prep():
+        with torch.no_grad():
+            X_tr[it]
+            for i in range(len(sizes) - 1):
+                qat.quantize_pow2(s.params[f"w{i}"], wb)
+
+    with torch.no_grad():
+        wq = [qat.quantize_pow2(s.params[f"w{i}"], wb) for i in range(len(sizes) - 1)]
+        z1 = ops.fused_forward(X_tr[it], s.thr, s.ids, wq[0], s.params["b0"], scale)
+
+    def plain_head():  # the chain from K2's output to K3's input, autograd's backward
+        z = z1.detach().requires_grad_(True)
+        w1 = wq[1].detach().requires_grad_(True)
+        b1 = s.params["b1"].detach().requires_grad_(True)
+        logits = qat.dense(qat.quantize_uniform(qat.clip01(torch.relu(z)), ab), w1, b1)
+        loss = ((s.w * qat.cross_entropy(logits, y_tr[it])) / s.denom[:, None]).sum()
+        g0, _, _ = torch.autograd.grad(loss, [z, w1, b1])
+        fixed_sum(g0, 1)
+
+    grads = {k: torch.zeros_like(v) for k, v in s.params.items()}
+    upd = h.clone(s)
+
+    def plain_update():
+        ref._momentum_update(upd, grads, mom, 0)
+
+    plain = {"qat_step_prep": plain_prep, "qat_step_head": plain_head,
+             "qat_step_update": plain_update}
+    table = {}
+    for k, fn in plain.items():
+        prof = device_kernels(torch, fn, n=10)
+        table[k] = {"ms": kernel_ms_[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                    "plain_ms": prof["kernel_us_per_call"] / 1e3,
+                    "plain_kernels": prof["kernels_per_call"],
+                    "max_abs_err": max(c["max_abs_gap"] for c in cases)}
+    emit("qat_step", cases=cases, rows=P, graph_steps=STEP_GRAPH_STEPS, step_ms=step_ms,
+         median_step_ms=med, plain_over_fused=med["plain"] / med["fused"],
+         kernels_a_step={"fused": fused_k, "plain": plain_k}, step_kernels=table,
+         checks=checks, ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"qat_step checks failed: {checks}")
+    return table
+
+
 def _cardio():
     from repro_torch.data import uci_synth
 
@@ -661,10 +868,36 @@ def _same(torch, a, b) -> bool:
     return bool(torch.equal(a[0], b[0])) and all(torch.equal(a[1][k], b[1][k]) for k in a[1])
 
 
+def _plain_chain(mcfg):
+    """While entered, the trainer's ADC-only step of an MLP of ``mcfg`` is
+    the plain chain (``trainer._chain_step``) in place of the fused kernels:
+    for the graphs a program captures, and for every step of an eager one."""
+    import contextlib
+
+    from repro_torch.core import trainer
+    from repro_torch.kernels.fused_qat import ops
+
+    def chain(X_tr, y_tr, s, j, momentum):
+        trainer._chain_step(X_tr, y_tr, mcfg, momentum, s, j)
+
+    @contextlib.contextmanager
+    def swapped():
+        fused = ops.qat_step
+        ops.qat_step = chain
+        try:
+            yield
+        finally:
+            ops.qat_step = fused
+
+    return swapped()
+
+
 def phase_placement(torch):
     """The captured graph against the eager loop, bit for bit, at P = 24 and
-    at P = 5 (bucket 8); a row alone equals the same row in the batch; two
-    runs of one batch give the same bits.  600 steps, blocks of S steps."""
+    at P = 5 (bucket 8), and the graphed fused step against the graphed plain
+    chain it replaces (``trainer._chain_step``); a row alone equals the same row in
+    the batch; two runs of one batch give the same bits.  600 steps, blocks of
+    S steps."""
     from repro_torch.core import qat, trainer
 
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
@@ -696,9 +929,14 @@ def phase_placement(torch):
     rows5 = [r[five] for r in rows]
     p5 = {k: v[five] for k, v in params0.items()}
     g5, e5 = run(*rows5, p5, idx[five]), eager(*rows5, p5, idx[five])
+    chain = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
+    with _plain_chain(mcfg):  # its graphs hold the plain chain's launches
+        c24, c5 = chain(*rows, params0, idx), chain(*rows5, p5, idx[five])
     checks = {
         "graph_equals_eager_p24": _same(torch, out, ref),
         "graph_equals_eager_p5": _same(torch, g5, e5),
+        "fused_equals_plain_chain_p24": _same(torch, out, c24),
+        "fused_equals_plain_chain_p5": _same(torch, g5, c5),
         "p5_equals_its_rows_in_p24": _same(torch, g5, (out[0][five], {
             k: v[five] for k, v in out[1].items()})),
         "alone_equals_batch": alone_ok,
@@ -707,7 +945,8 @@ def phase_placement(torch):
     }
     emit("placement", rows=P, steps=600, block_steps=ecfg.block_steps,
          first_call_s=first_s, batch_of_24_s=batch_s, eager_batch_of_24_s=eager_s,
-         graph_stats=dict(run.stats), checks=checks, ok=all(checks.values()))
+         graph_stats=dict(run.stats), chain_stats=dict(chain.stats), checks=checks,
+         ok=all(checks.values()))
     if not all(checks.values()):
         raise SystemExit(f"placement checks failed: {checks}")
 
@@ -736,10 +975,12 @@ class EvaluatorTally:
 
     Wraps ``trainer.make_population_evaluator`` (which the island evaluator
     and ``rebuild`` also go through) to keep each evaluator's ``stats``:
-    calls, graphs captured, warm-up steps, replays.  From them the K2 and
-    K3 launches of a run are exact: a call launches K2 once a step and once
-    for its evaluation and K3 once a step, and each capture's warm-up steps
-    launch both once."""
+    calls, graphs captured, warm-up steps, replays, fused calls.  From them
+    the K2 and K3 launches of a run are exact: a call launches K2 once a step
+    and once for its evaluation and K3 once a step, and each capture's
+    warm-up steps launch both once; an ADC-only evaluator's calls
+    (``fused_calls``) and warm-up steps launch each of the fused step's three
+    kernels once a step."""
 
     def __init__(self):
         from repro_torch.core import trainer
@@ -765,8 +1006,11 @@ class EvaluatorTally:
 
     def expected_launches(self, max_steps: int) -> dict:
         calls, warm = self.total("calls"), self.total("warmup_steps")
+        fused = self.total("fused_calls") * max_steps + sum(
+            st["warmup_steps"] for st in self.stats if st["fused_calls"])
         return {"fused_qat_forward": calls * (max_steps + 1) + warm,
-                "fused_qat_backward": calls * max_steps + warm}
+                "fused_qat_backward": calls * max_steps + warm,
+                **dict.fromkeys(STEP_KERNELS, fused)}
 
 
 def phase_slice(torch):
@@ -4295,11 +4539,14 @@ def build_all(torch) -> None:
         emit("ptxas", library=n, kernels=report)
         # the register paths keep their comparator tables in registers (N = 4):
         # K1's RegBank<15, W>, one kernel for each W, and K2's RegBank<15>; a
-        # spill would put the tables back in memory
-        want = {"pruned_quant": 2, "fused_qat": 1}.get(n)
+        # spill would put the tables back in memory.  So do the training
+        # step's head instances of fixed widths (qat_step_head_kernel<H, K>,
+        # H > 0) with a thread's products and sums.
+        want = {"pruned_quant": 2, "fused_qat": 4}.get(n)
         if want:
             spills = {k["kernel"]: k["spill_stores"] + k["spill_loads"] for k in report
-                      if "RegBank" in k["kernel"]}
+                      if "RegBank" in k["kernel"] or ("qat_step_head_kernel" in k["kernel"]
+                                                      and "ILi0E" not in k["kernel"])}
             if len(spills) != want or any(spills.values()):
                 raise SystemExit(f"{n}'s register-path kernels spill or are missing: {spills}")
 
@@ -4504,7 +4751,9 @@ def phase_step_ab(torch, other_src: Path):
     and accuracies, bit for bit, where their K2 and K3 give the same bits.
     The row program is the eager loop (``graph=False``), as before the
     population step had its CUDA graph, so its step times stay comparable
-    with the earlier measurements of this case."""
+    with the earlier measurements of this case.  Each version's K2 and K3 are
+    swapped in where this checkout calls them: the fused step
+    (``ops.qat_step``) and the test forward (``FusedQAT``)."""
     from repro_torch.core import qat, trainer
     from repro_torch.kernels.fused_qat import ops as qops
 
@@ -4518,24 +4767,31 @@ def phase_step_ab(torch, other_src: Path):
     rows, seeds = _cardio_rows(P, seed=5)
     params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
     order = ["other", "this", "this", "other"] * AB_ROUNDS
+    k2_k3 = ("fused_qat_forward", "fused_qat_backward")
+    mine = (qops.fused_forward, qops.fused_backward)
+
+    def use(ops):
+        qops.fused_forward, qops.fused_backward = ops.fused_forward, ops.fused_backward
+
     try:
         trained = {}
         for name, ops in versions.items():  # a first run of each, then the counts
-            qat.fused_qat_first_layer = ops.fused_qat_first_layer
+            use(ops)
             trained[name] = run(*rows, params0, idx)
             ops.reset_launch_counts()
         step_ms = {name: [] for name in versions}
         for name in order:
-            qat.fused_qat_first_layer = versions[name].fused_qat_first_layer
+            use(versions[name])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run(*rows, params0, idx)
             torch.cuda.synchronize()
             step_ms[name].append((time.perf_counter() - t0) / STEP_AB_STEPS * 1e3)
     finally:
-        qat.fused_qat_first_layer = qops.fused_qat_first_layer
+        qops.fused_forward, qops.fused_backward = mine
     blocks = 2 * AB_ROUNDS
-    launches = {n: {k: v / blocks for k, v in ops.LAUNCHES.items()} for n, ops in versions.items()}
+    launches = {n: {k: ops.LAUNCHES[k] / blocks for k in k2_k3}
+                for n, ops in versions.items()}
     (acc, params), (acc_o, params_o) = trained["this"], trained["other"]
     med = {n: statistics.median(b) for n, b in step_ms.items()}
     checks = {"same_accuracies": bool(torch.equal(acc, acc_o)),
@@ -4552,26 +4808,28 @@ def phase_step_ab(torch, other_src: Path):
 
 
 S_CANDIDATES = (10, 25, 50, 100, 200)  # block lengths --step-ab times against each other
-GRAPH_AB_ROUNDS = 3  # rounds of (eager, graph at each S, ..., eager) in --step-ab
-GEN_AB_ROUNDS = 2  # rounds of (eager, graph, graph, eager) co-design runs in --step-ab
+GRAPH_AB_ROUNDS = 3  # rounds of (every program, then reversed) in --step-ab
+GEN_AB_ROUNDS = 2  # rounds of (chain, fused, fused, chain) co-design runs in --step-ab
 
 
 def phase_graph_ab(torch):
-    """The captured graph against the eager loop, in turns, in one process.
+    """The fused step against the plain chain it replaces, and the captured
+    graph against the eager loop, in turns, in one process.
 
-    Steps: 24 cardio rows (the slice's shapes), one 600-step call a block,
-    eager and the graph at each block length of S_CANDIDATES in the order
-    eager, S..., S reversed, eager, GRAPH_AB_ROUNDS times; a block's wall
-    time (host clock between two synchronisations) over its steps.  Every
-    version trains to the same parameters and accuracies, bit for bit.  The
-    first call of each S captures its graphs: that time is kept apart.
-    Generations: ``run_codesign`` on cardio (pop 24, 600 steps, 2
-    generations), the evaluators alternately eager and graphed (eager,
-    graph, graph, eager, GEN_AB_ROUNDS times), seconds a generation from
-    its history; the two searches give the same fronts.  Then each under the
+    Steps: 24 cardio rows (the slice's shapes), one 600-step call a block:
+    the plain chain (``trainer._chain_step``) eager and graphed, the fused step
+    eager and graphed at each block length of S_CANDIDATES, in that order
+    and reversed, GRAPH_AB_ROUNDS times; a block's wall time (host clock
+    between two synchronisations) over its steps.  Every version trains to
+    the same parameters and accuracies as the plain chain's eager loop, bit
+    for bit.  The first call of each program captures its graphs: that time
+    is kept apart.  Searches: ``run_codesign`` on cardio (pop 24, 600 steps,
+    2 generations), graphed, its steps alternately the plain chain and the
+    fused step (chain, fused, fused, chain, GEN_AB_ROUNDS times), seconds a
+    generation from its history; the two give the same fronts.  Then the
     profiler (``phase_profile``): device busy time and idle share."""
+    import contextlib
     import dataclasses
-    import functools
 
     import numpy as np
 
@@ -4581,61 +4839,67 @@ def phase_graph_ab(torch):
     (X_tr, y_tr, X_te, y_te), sizes = _cardio()
     mcfg = qat.MLPConfig(sizes)
     rows, seeds = _cardio_rows(P, seed=5)
+    names = ["chain_eager", "chain"] + ["eager"] + [f"S{S}" for S in S_CANDIDATES]
     programs, first_call_s = {}, {}
-    for name in ["eager"] + [f"S{S}" for S in S_CANDIDATES]:
-        ecfg = trainer.EvalConfig(max_steps=600, block_steps=int(name[1:]) if name[0] == "S"
-                                  else trainer.EvalConfig().block_steps)
+    for name in names:
+        S = int(name[1:]) if name[0] == "S" else trainer.EvalConfig().block_steps
+        ecfg = trainer.EvalConfig(max_steps=600, block_steps=S)
         programs[name] = trainer.make_row_program(
             X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
-            graph=None if name[0] == "S" else False)
+            graph=False if name.endswith("eager") else None)
     params0, idx = trainer.draw_rows(seeds, trainer.EvalConfig(max_steps=600), mcfg,
                                      X_tr.shape[0])
+
+    def call(name):
+        with _plain_chain(mcfg) if name.startswith("chain") else contextlib.nullcontext():
+            return programs[name](*rows, params0, idx)
+
     trained = {}
-    for name, run in programs.items():
+    for name in names:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trained[name] = run(*rows, params0, idx)
+        trained[name] = call(name)
         torch.cuda.synchronize()
         first_call_s[name] = time.perf_counter() - t0
-    graphs = [n for n in programs if n != "eager"]
-    order = (["eager"] + graphs + graphs[::-1] + ["eager"]) * GRAPH_AB_ROUNDS
+    order = (names + names[::-1]) * GRAPH_AB_ROUNDS
     step_ms = {n: [] for n in programs}
     for name in order:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        programs[name](*rows, params0, idx)
+        call(name)
         torch.cuda.synchronize()
         step_ms[name].append((time.perf_counter() - t0) / 600 * 1e3)
     med = {n: statistics.median(v) for n, v in step_ms.items()}
-    checks = {f"{n}_equals_eager": _same(torch, trained[n], trained["eager"]) for n in graphs}
+    checks = {f"{n}_equals_chain_eager": _same(torch, trained[n], trained["chain_eager"])
+              for n in names[1:]}
     emit("graph_ab", case="steps", rows=P, steps_per_block=600, order=order,
          step_ms=step_ms, median_step_ms=med,
-         eager_over_graph={n: med["eager"] / med[n] for n in graphs},
+         chain_over={n: med["chain"] / med[n] for n in names},
          first_call_s=first_call_s, stats={n: dict(r.stats) for n, r in programs.items()},
          checks=checks, ok=all(checks.values()))
     if not all(checks.values()):
         raise SystemExit(f"graph_ab steps: {checks}")
 
-    make = trainer.make_population_evaluator
     cfg = dataclasses.replace(codesign_config("cardio", full=True), n_generations=2,
                               device="cuda")
-    gen_s, fronts = {"eager": [], "graph": []}, {}
-    try:
-        for name in ["eager", "graph", "graph", "eager"] * GEN_AB_ROUNDS:
-            trainer.make_population_evaluator = (
-                functools.partial(make, graph=False) if name == "eager" else make)
+    gen_s, search_s, fronts = {"chain": [], "fused": []}, {"chain": [], "fused": []}, {}
+    for name in ["chain", "fused", "fused", "chain"] * GEN_AB_ROUNDS:
+        with _plain_chain(mcfg) if name == "chain" else contextlib.nullcontext():
+            t0 = time.perf_counter()
             res = codesign.run_codesign(cfg)
-            gen_s[name].append([h["gen_s"] for h in res.history])
-            fronts[name] = (res.front_acc, res.front_masks, res.n_evaluations)
-    finally:
-        trainer.make_population_evaluator = make
-    same = all(np.array_equal(a, b) for a, b in zip(fronts["eager"], fronts["graph"]))
+            search_s[name].append(time.perf_counter() - t0)
+        gen_s[name].append([h["gen_s"] for h in res.history])
+        fronts[name] = (res.front_acc, res.front_masks, res.n_evaluations)
+    same = all(np.array_equal(a, b) for a, b in zip(fronts["chain"], fronts["fused"]))
     emit("graph_ab", case="generations", dataset="cardio", pop_size=cfg.pop_size,
          max_steps=cfg.max_steps, n_generations=cfg.n_generations, gen_s=gen_s,
+         search_s=search_s,
          median_gen_s={n: statistics.median(x for g in v for x in g) for n, v in gen_s.items()},
+         median_search_s={n: statistics.median(v) for n, v in search_s.items()},
          checks={"same_fronts": same}, ok=same)
     if not same:
-        raise SystemExit("graph_ab generations: eager and graphed searches differ")
+        raise SystemExit("graph_ab generations: the plain chain's and the fused step's "
+                         "searches differ")
 
     phase_profile(torch)
 
@@ -4643,9 +4907,10 @@ def phase_graph_ab(torch):
 def phase_capture_fails(torch):
     """A capture that fails raises, and the trainer does not fall back to the
     eager loop: a step that reads a value back to the host while it is being
-    captured (here an injected ``float(logits.sum())``) ends the call with an
-    error, no graph is cached, and only the warm-up's K2/K3 launches ran.
-    Run last: the failed capture leaves the CUDA stream state to the driver."""
+    captured (here an injected ``float(...)`` of a parameter before the fused
+    step) ends the call with an error, no graph is cached, and only the
+    warm-up's launches ran (K2, K3 and the step's three kernels).  Run last:
+    the failed capture leaves the CUDA stream state to the driver."""
     from repro_torch.core import qat, trainer
     from repro_torch.kernels.fused_qat import ops
 
@@ -4654,28 +4919,27 @@ def phase_capture_fails(torch):
     run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda")
     rows, seeds = _cardio_rows(4, seed=3)
     params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
-    cross_entropy = qat.cross_entropy
+    qat_step = ops.qat_step
 
-    def reads_host(logits, labels):
+    def reads_host(X_tr, y_tr, s, j, momentum):
         if torch.cuda.is_current_stream_capturing():
-            float(logits.sum())  # a host read: not capturable
-        return cross_entropy(logits, labels)
+            float(s.params["w0"].sum())  # a host read: not capturable
+        return qat_step(X_tr, y_tr, s, j, momentum)
 
     before = dict(ops.LAUNCHES)
-    qat.cross_entropy = reads_host
+    ops.qat_step = reads_host
     try:
         run(*rows, params0, idx)
         error = None
     except RuntimeError as e:
         error = f"{type(e).__name__}: {e}"[:300]
     finally:
-        qat.cross_entropy = cross_entropy
+        ops.qat_step = qat_step
     launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
     checks = {"capture_raised": error is not None,
               "no_graph_cached": run.stats["captures"] == 0 and run.stats["replays"] == 0,
-              "only_warmup_launched": launched == {
-                  "fused_qat_forward": trainer.WARMUP_STEPS,
-                  "fused_qat_backward": trainer.WARMUP_STEPS}}
+              "only_warmup_launched": launched == dict.fromkeys(ops.LAUNCHES,
+                                                                trainer.WARMUP_STEPS)}
     emit("capture_fails", error=error, launches=launched, stats=dict(run.stats),
          checks=checks, ok=all(checks.values()))
     if not all(checks.values()):
@@ -4832,7 +5096,8 @@ def main() -> int:
     if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
         phase_service(torch, profile=profile)
         return 0
-    if "--step-ab" in args:  # the graph checked against the eager loop, then timed
+    if "--step-ab" in args:  # the fused step and the graph checked, then timed
+        phase_qat_step(torch)
         phase_placement(torch)
         phase_graph_ab(torch)
         phase_capture_fails(torch)
@@ -4857,6 +5122,7 @@ def main() -> int:
     for kname, n in phase_service(torch, profile=profile).items():
         launches[kname] += n
     phase_qat_profiler(torch)
+    step_kernels = phase_qat_step(torch)  # after qat_profiler: more sessions lose records
     if profile:
         phase_profile(torch)
     attn = phase_attn_kernels(torch)
@@ -4921,6 +5187,14 @@ def main() -> int:
             "bound_by": main_path["bound_by"],
             "library_ms": main_path["library_ms"],
         })
+    for kname, t in step_kernels.items():  # no TPU kernel: the plain chain around K2/K3
+        rows.append({"name": kname, "route": "cuda",
+                     "source": "src/repro_torch/kernels/fused_qat/csrc/fused_qat.cu",
+                     "replaces": "src/repro_torch/core/trainer.py:_chain_step (plain ops)",
+                     "launches": launches[kname], "max_abs_err": t["max_abs_err"],
+                     "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": None})
     rows.append({
         "name": "pruned_quantize",
         "route": "cuda",

@@ -250,6 +250,7 @@ def mlp_forward(
     act_bits=None,
     act_sel: torch.Tensor | None = None,
     layer_weight_bits: torch.Tensor | None = None,
+    tables: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Quantized forward pass of a population on the pruned-ADC path.
 
@@ -262,6 +263,9 @@ def mlp_forward(
       layer_weight_bits: (P, n_layers) fp32 widths through
         :func:`quantize_layer_weights` (0.0 = ternary, axis "wprec"); they
         replace ``weight_bits`` in every layer, the first one included.
+      tables: the masks' comparator tables ``(thr, ids)``
+        (``kernels.pruned_quant.ref.make_tables``) where the caller keeps
+        them; then ``masks`` is not read.
     Returns: (P, B, n_classes) logits.
 
     The first layer is the fused comparator bank + matmul
@@ -284,7 +288,7 @@ def mlp_forward(
         # printed hidden activations are re-digitised at act_bits
         return quantize_uniform(clip01(h), ab)
 
-    h = fused_qat_first_layer(x, masks, layer_w(0), params["b0"], cfg.adc_bits)
+    h = fused_qat_first_layer(x, masks, layer_w(0), params["b0"], cfg.adc_bits, tables=tables)
     for i in range(1, n_layers):
         h = dense(hidden_act(h, i - 1), layer_w(i), params[f"b{i}"])
     return h

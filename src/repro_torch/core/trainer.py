@@ -22,7 +22,12 @@ set of static buffers: parameters and momentum velocity, masks and bit
 widths (and the genome axes' selectors and widths), the loss weights, and
 one block's minibatch indices, learning rates and update gates, which are
 copied in on the stream before each block.  A block is the same code on
-every device (:func:`_train_block`).  On the card it is captured once
+every device (:func:`_train_block`).  A step of the ADC-only genome is
+``kernels.fused_qat.ops.qat_step``: on the card five launches (K2, K3 and
+three kernels around them), on the CPU its plain version; the genome axes
+train through the chain of ``core.qat`` ops and autograd
+(:func:`_chain_step`).  The masks' comparator tables are made once a call,
+into the bucket's buffers.  On the card a block is captured once
 per (bucket, block length) with ``torch.cuda.graph`` and replayed
 ``max_steps / S`` times, plus a tail
 graph when S does not divide ``max_steps``; graphs are cached per
@@ -75,6 +80,7 @@ from repro_torch import spans
 from repro_torch.core import chromosome, qat
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_qat import ops as qat_ops
+from repro_torch.kernels.pruned_quant.ref import make_tables
 from repro_torch.parallel import sharding as shd
 
 __all__ = [
@@ -176,30 +182,64 @@ def _pad_rows(t: torch.Tensor, bucket: int) -> torch.Tensor:
     return torch.cat([t, t[-1:].expand((bucket - n,) + tuple(t.shape[1:]))])
 
 
-class _Slots:
-    """The static buffers of one bucket: a block reads and writes only these."""
+class _Slots(qat_ops.StepBuffers):
+    """The static buffers of one bucket: a block reads and writes only these.
+
+    A step's (``ops.StepBuffers``), the masks, and the genome axes' rows."""
 
     def __init__(self, n: int, mlp_cfg: qat.MLPConfig, cfg: EvalConfig, dev):
         sizes = mlp_cfg.layer_sizes
         f32 = dict(dtype=torch.float32, device=dev)
-        self.params = {}
+        params = {}
         for i, (fi, fo) in enumerate(zip(sizes[:-1], sizes[1:])):
-            self.params[f"w{i}"] = torch.zeros((n, fi, fo), **f32).requires_grad_(True)
-            self.params[f"b{i}"] = torch.zeros((n, fo), **f32).requires_grad_(True)
-        self.vel = {k: torch.zeros_like(v) for k, v in self.params.items()}
+            params[f"w{i}"] = torch.zeros((n, fi, fo), **f32).requires_grad_(True)
+            params[f"b{i}"] = torch.zeros((n, fo), **f32).requires_grad_(True)
+        # the masks' comparator tables (make_tables), made once a call
+        T = (1 << mlp_cfg.adc_bits) - 1
+        S = min(cfg.block_steps, cfg.max_steps)
+        super().__init__(
+            params=params, vel={k: torch.zeros_like(v) for k, v in params.items()},
+            thr=torch.zeros((n, sizes[0], T), **f32),
+            ids=torch.zeros((n, sizes[0], T), dtype=torch.int32, device=dev),
+            wb=torch.zeros(n, **f32), ab=torch.zeros(n, **f32),
+            w=torch.zeros((n, cfg.max_batch), **f32), denom=torch.zeros(n, **f32),
+            idx=torch.zeros((n, S, cfg.max_batch), dtype=torch.int64, device=dev),
+            lr=torch.zeros((n, S), **f32), gate=torch.zeros((n, S), **f32))
         self.masks = torch.zeros((n, sizes[0], 1 << mlp_cfg.adc_bits), dtype=torch.bool,
                                  device=dev)
-        self.wb, self.ab, self.denom = (torch.zeros(n, **f32) for _ in range(3))
         # the genome axes' rows (None when the axis is off: the ADC-only step)
         n_layers = len(sizes) - 1
         names = _extra_names(cfg)
+        # the ADC-only genome trains through the fused step (ops.qat_step)
+        self.fused = not names
         self.act_sel = (torch.zeros((n, n_layers - 1), dtype=torch.int64, device=dev)
                         if "act_sel" in names else None)
         self.wprec = torch.zeros((n, n_layers), **f32) if "wprec" in names else None
-        self.w = torch.zeros((n, cfg.max_batch), **f32)
-        S = min(cfg.block_steps, cfg.max_steps)
-        self.idx = torch.zeros((n, S, cfg.max_batch), dtype=torch.int64, device=dev)
-        self.lr, self.gate = torch.zeros((n, S), **f32), torch.zeros((n, S), **f32)
+
+
+def _chain_step(X_tr, y_tr, mlp_cfg: qat.MLPConfig, momentum: float, s: _Slots,
+                j: int) -> None:
+    """Training step ``j`` of every row as a chain of plain ops: ``mlp_forward``
+    (K2/K3 on the card), ``cross_entropy``, autograd's backward, the momentum
+    update.  The genome axes train through it; for the ADC-only genome it is
+    what ``ops.qat_step`` fuses."""
+    P = s.masks.shape[0]
+    params = list(s.params.values())
+    it = s.idx[:, j]
+    logits = qat.mlp_forward(s.params, X_tr[it], mlp_cfg, s.masks, s.wb, s.ab,
+                             act_sel=s.act_sel, layer_weight_bits=s.wprec,
+                             tables=(s.thr, s.ids))
+    # each row's loss: sum(w * ce) / max(sum(w), 1); rows add up
+    # independently, so one backward gives every row its own gradient
+    loss = ((s.w * qat.cross_entropy(logits, y_tr[it])) / s.denom[:, None]).sum()
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        lr_t, on = s.lr[:, j], s.gate[:, j]
+        for (k, p), g in zip(s.params.items(), grads):
+            shape = (P,) + (1,) * (p.ndim - 1)
+            v = s.vel[k]
+            v.copy_(momentum * v - lr_t.view(shape) * g)
+            p.add_(on.view(shape) * v)
 
 
 def _train_block(X_tr, y_tr, mlp_cfg: qat.MLPConfig, momentum: float, s: _Slots,
@@ -207,25 +247,15 @@ def _train_block(X_tr, y_tr, mlp_cfg: qat.MLPConfig, momentum: float, s: _Slots,
     """``n_steps`` training steps of every row, reading and updating ``s`` in place.
 
     Step j takes column j of the block's indices, learning rates and gates.
-    The eager loop, the CPU and the captured graph all run this function.
+    The eager loop, the CPU and the captured graph all run this function:
+    the ADC-only genome through ``ops.qat_step`` (five kernels on the card,
+    its plain version on the CPU), the genome axes through ``_chain_step``.
     """
-    P = s.masks.shape[0]
-    params = list(s.params.values())
     for j in range(n_steps):
-        it = s.idx[:, j]
-        logits = qat.mlp_forward(s.params, X_tr[it], mlp_cfg, s.masks, s.wb, s.ab,
-                                 act_sel=s.act_sel, layer_weight_bits=s.wprec)
-        # each row's loss: sum(w * ce) / max(sum(w), 1); rows add up
-        # independently, so one backward gives every row its own gradient
-        loss = ((s.w * qat.cross_entropy(logits, y_tr[it])) / s.denom[:, None]).sum()
-        grads = torch.autograd.grad(loss, params)
-        with torch.no_grad():
-            lr_t, on = s.lr[:, j], s.gate[:, j]
-            for (k, p), g in zip(s.params.items(), grads):
-                shape = (P,) + (1,) * (p.ndim - 1)
-                v = s.vel[k]
-                v.copy_(momentum * v - lr_t.view(shape) * g)
-                p.add_(on.view(shape) * v)
+        if s.fused:
+            qat_ops.qat_step(X_tr, y_tr, s, j, momentum)
+        else:
+            _chain_step(X_tr, y_tr, mlp_cfg, momentum, s, j)
 
 
 class _Block:
@@ -272,8 +302,10 @@ class _Program:
         self.slots: dict[int, _Slots] = {}
         self.blocks: dict[tuple[int, int], _Block] = {}
         self.pool = torch.cuda.graph_pool_handle() if graph else None
-        # calls, graphs captured, the eager steps their warm-ups ran, replays
-        self.stats = {"calls": 0, "captures": 0, "warmup_steps": 0, "replays": 0}
+        # calls, graphs captured, the eager steps their warm-ups ran, replays,
+        # and the calls that trained through the fused step (ops.qat_step)
+        self.stats = {"calls": 0, "captures": 0, "warmup_steps": 0, "replays": 0,
+                      "fused_calls": 0}
 
     def _put(self, t: torch.Tensor) -> torch.Tensor:
         """A host tensor on the device, copied without making the host wait."""
@@ -334,8 +366,12 @@ class _Program:
             s = self.slots.get(n)
             if s is None:
                 s = self.slots[n] = _Slots(n, self.mlp_cfg, cfg, self.dev)
+            self.stats["fused_calls"] += s.fused
             for k, v in rows.items():
                 self._copy(getattr(s, k), _pad_rows(v, n))
+            thr, ids = make_tables(s.masks, self.mlp_cfg.adc_bits)
+            s.thr.copy_(thr)
+            s.ids.copy_(ids)
             lengths = self._block_lengths()
 
             def load_block(t0: int, m: int) -> None:
@@ -374,7 +410,7 @@ class _Program:
             with torch.no_grad():
                 logits = qat.mlp_forward(s.params, self.X_te.expand(n, -1, -1), self.mlp_cfg,
                                          s.masks, s.wb, s.ab, act_sel=s.act_sel,
-                                         layer_weight_bits=s.wprec)
+                                         layer_weight_bits=s.wprec, tables=(s.thr, s.ids))
                 acc = qat.accuracy(logits, self.y_te.expand(n, -1))
         return acc, s, P
 
@@ -401,7 +437,7 @@ def make_row_program(X_tr, y_tr, X_te, y_te, mlp_cfg: qat.MLPConfig, cfg: EvalCo
     selectors (P, n_hidden), then wprec widths (P, n_layers)).
     ``graph``: None = a CUDA graph on the card, the plain loop on the CPU.
     The returned function carries ``.stats`` (calls, captures, warm-up
-    steps, replays).
+    steps, replays, fused calls).
     """
     dev = resolve_device(device)
     prog = _Program(X_tr, y_tr, X_te, y_te, mlp_cfg, cfg, dev, _use_graph(dev, graph))

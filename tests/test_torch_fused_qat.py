@@ -120,7 +120,9 @@ def test_wrappers_validate_inputs_and_count_only_launches():
     ops.reset_launch_counts()
     ops.fused_forward(xt, thr, ids, wt, bt, SCALE)
     ops.fused_backward(xt, thr, ids, wt, torch.from_numpy(g), SCALE)
-    assert ops.LAUNCHES == {"fused_qat_forward": 0, "fused_qat_backward": 0}
+    # the CPU launches none of K2, K3 or the training step's kernels
+    assert ops.LAUNCHES == {"fused_qat_forward": 0, "fused_qat_backward": 0,
+                            "qat_step_prep": 0, "qat_step_head": 0, "qat_step_update": 0}
     with pytest.raises(TypeError):
         ops.fused_forward(xt.double(), thr, ids, wt, bt, SCALE)
     with pytest.raises(TypeError):
