@@ -22,6 +22,9 @@
                                       # later encode in one process; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
+    python3 chip_smoke.py --kexaone   # build, then phases 7 and 17b only (K4's window
+                                      # checked and timed, K-EXAONE's served path),
+                                      # and one kernels line: its window row
     python3 chip_smoke.py --train     # build, then phases 18-22 only (LM training; with
                                       # --profile, a full-width step profiled), and
                                       # stop: no result lines
@@ -144,6 +147,14 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 bits twice; K5 called with kv_len=None reads the full cache,
                 and a row with kv_len 0 or -1 is NaN (n_split 1 and > 1) while
                 the other rows match the plain version.
+                K4's windowed instance (bf16) against the plain version in
+                blocks of queries at K-EXAONE-236B's window layers (64/8 heads,
+                d 128, window 128, S 4096 and 32768) and at edges (S below the
+                window, ragged tiles, a window of 100 and of 1), one window
+                launch a call; a window past every distance gives the causal
+                kernel's bits; the fp32 kernel refuses a window; the 32768
+                call timed beside the plain version, the causal kernel and
+                the bound.
 8. lm_parity    reduced yi-9b in fp32, one set of seed-drawn parameters on the
                 card and on the port's CPU path: ``serve.run`` tokens equal,
                 prefill and decode logits within the fp32 bound, and every K4
@@ -226,7 +237,17 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 K4 6 a prefill and K5 6 a decode step; K4 and K5 at zamba2's
                 full-length bf16 shapes (d = 80, G = 1) against their plain
                 versions (3e-2), timed.
-Phases 15-17 run after phase 14.
+17b. kexaone_slice
+                K-EXAONE-236B at full width in bf16, depth cut from 48 to 8
+                layers (two periods of LLLG; 8 of 128 experts held), weights
+                drawn by its benchmark cell's driver: a 4096-token prefill
+                twice and ``serve.run`` of 4 requests of 32 + 160 tokens (every
+                ring wraps), K4 8 a prefill (6 of them windowed) and K5 8 a
+                decode step, counted in that run alone; the prefill's last
+                positions and 8 decode steps after a 200-token prefill against
+                the plain fp32 reference (``cardbench/reference/exaone_moe``),
+                the median gap a position within the cell's ``logit_err`` limit.
+Phases 15-17b run after phase 14.
 18. train_guard K4 and K5 on the card raise when autograd would record the
                 call (q, k or v requiring grad, gradients on) and launch
                 nothing; under ``no_grad`` each launches once.
@@ -1949,6 +1970,20 @@ FLASH_EDGES = [
     (1, 80, 80, 4, 4, 80, True),      # odd head_dim
     (1, 200, 200, 8, 1, 256, True),   # widest head dim, one KV head
 ]
+# K4's windowed instance, bf16 only: (B, S, Hq, Hkv, d, window).  The first two
+# are K-EXAONE-236B's window layers at the cell's shortest and longest
+# prompts; the longest is timed.  The plain version runs in blocks of queries
+# (its whole (S, S) scores at 32768 would be 275 GB).
+WINDOW_CASES = [
+    (1, 4096, 64, 8, 128, 128),
+    (1, 32768, 64, 8, 128, 128),
+    (1, 100, 64, 8, 128, 128),    # shorter than the window
+    (2, 1000, 16, 2, 128, 128),   # ragged tile edge, two rows
+    (1, 777, 8, 8, 64, 100),      # a window that is no multiple of a key tile
+    (1, 513, 8, 2, 128, 1),       # each query keeps itself alone
+]
+KEXAONE_WINDOW = WINDOW_CASES[1]
+WINDOW_BLOCK_Q = 1024
 YI_DECODE = (4, 32, 4, 4096, 128)                  # B, Hq, Hkv, S, d
 DECODE_EDGES = [
     (1, 8, 8, 128, 64),      # MHA
@@ -2010,7 +2045,7 @@ def phase_attn_kernels(torch):
             torch.cuda.synchronize()
             counted = {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
                 "flash_attention": 1, "flash_attention_tc": int(variant == "tc"),
-                "flash_attention_fp32": int(variant == "fp32")}
+                "flash_attention_fp32": int(variant == "fp32"), "flash_attention_window": 0}
             err, ok = _close(torch, out, fref.flash_attention_ref(q, k, v, causal), dname)
             rec = {"kernel": "flash_attention", "variant": variant, "dtype": dname,
                    "shape": list(shape), "max_abs_err": err, "tol": ATTN_TOL[dname]}
@@ -2094,7 +2129,66 @@ def phase_attn_kernels(torch):
                 raise SystemExit(f"K5 disagrees with its plain version: {rec}")
     for kname, e in errs.items():
         res[kname]["max_abs_err"] = max(e)
+    res["flash_attention_window"] = _window_kernels(torch, fops, fref, rn)
     return res
+
+
+def _window_kernels(torch, fops, fref, rn) -> dict:
+    """K4's windowed instance against the plain version at WINDOW_CASES, each
+    launch counted; a window past every distance gives the causal kernel's
+    bits; the fp32 kernel refuses a window and launches nothing.  K-EXAONE's
+    longest call is timed beside the plain version, the causal kernel at the
+    same shape and the bound (``cardbench/counts/exaone.window_bound``)."""
+    from cardbench.counts.exaone import window_bound
+
+    bf16, errs, timed = torch.bfloat16, [], {}
+    for case in WINDOW_CASES:
+        B, S, Hq, Hkv, d, W = case
+        q, k, v = rn(B, S, Hq, d, dtype=bf16), rn(B, S, Hkv, d, dtype=bf16), rn(
+            B, S, Hkv, d, dtype=bf16)
+        n0 = dict(fops.LAUNCHES)
+        out = fops.flash_attention(q, k, v, True, window=W)
+        torch.cuda.synchronize()
+        counted = {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
+            "flash_attention": 1, "flash_attention_tc": 1, "flash_attention_fp32": 0,
+            "flash_attention_window": 1}
+
+        def plain():
+            return fref.flash_attention_ref(q, k, v, True, W, block_q=WINDOW_BLOCK_Q)
+
+        err, ok = _close(torch, out, plain(), "bfloat16")
+        rec = {"kernel": "flash_attention_window", "variant": "tc", "dtype": "bfloat16",
+               "shape": [B, S, Hq, Hkv, d], "window": W, "max_abs_err": err,
+               "tol": ATTN_TOL["bfloat16"]}
+        if W >= S:  # no key lies past the window
+            rec["equals_causal"] = bool(torch.equal(out, fops.flash_attention(q, k, v, True)))
+            ok = ok and rec["equals_causal"]
+        if case == KEXAONE_WINDOW:
+            bms, by = window_bound(B, S, Hq, Hkv, d, W)
+            rec.update(
+                ms=device_ms(torch, lambda: fops.flash_attention(q, k, v, True, window=W), 10, 5),
+                plain_ms=device_ms(torch, plain, 1, 3),
+                causal_ms=device_ms(torch, lambda: fops.flash_attention(q, k, v, True), 2, 3),
+                bound_ms=bms, bound_by=by, library_ms=None)
+            timed = rec
+        errs.append(err)
+        emit("attn_kernels", **rec, launch_counted=counted, ok=ok and counted)
+        if not (ok and counted):
+            raise SystemExit(f"K4's window disagrees with its plain version: {rec}")
+        del q, k, v, out
+    q, k = rn(1, 256, 8, 64, dtype=torch.float32), rn(1, 256, 2, 64, dtype=torch.float32)
+    n0 = dict(fops.LAUNCHES)
+    try:
+        fops.flash_attention(q, k, k, True, window=64)
+        refused = False
+    except ValueError as e:
+        refused = "no sliding window" in str(e)
+    refused = refused and fops.LAUNCHES == n0
+    emit("attn_kernels", kernel="flash_attention_window", dtype="float32",
+         fp32_refuses_window=refused, ok=refused)
+    if not refused:
+        raise SystemExit("K4's fp32 kernel took a window")
+    return {**timed, "max_abs_err": max(errs)}
 
 
 SERVE_PARITY = dict(arch="yi-9b", reduced=True, max_batch=2, max_len=32, n_requests=4,
@@ -2164,10 +2258,10 @@ def _count_calls(module, name: str, counts: dict):
 
 
 def k4_variants(n: int, dtype: str = "bfloat16") -> dict:
-    """K4's per-variant launch counts for n calls in one dtype: bf16 runs on
-    the tensor-core kernel, fp32 on the CUDA-core one."""
+    """K4's per-variant launch counts for n calls in one dtype without a
+    window: bf16 runs on the tensor-core kernel, fp32 on the CUDA-core one."""
     tc = n if dtype == "bfloat16" else 0
-    return {"flash_attention_tc": tc, "flash_attention_fp32": n - tc}
+    return {"flash_attention_tc": tc, "flash_attention_fp32": n - tc, "flash_attention_window": 0}
 
 
 def fp32_variant_only(fops, before: dict) -> bool:
@@ -3010,10 +3104,11 @@ def _full_width_main_path(torch, model, module, params, serve_cfg, tokens,
                 launches=launches, calls=main_calls, logits=logits if keep_logits else None)
 
 
-def _expected_launches(attn_per_call: int, calls: dict) -> dict:
+def _expected_launches(attn_per_call: int, calls: dict, window_layers: int = 0) -> dict:
     want = {"pruned_quantize": 0, "flash_attention": attn_per_call * calls["prefill"],
             "decode_attention": attn_per_call * calls["decode_step"]}
     want.update(k4_variants(want["flash_attention"]))
+    want["flash_attention_window"] = window_layers * calls["prefill"]
     return want
 
 
@@ -3122,9 +3217,10 @@ def _draw(torch, model, seed: int):
     return params, time.perf_counter() - t0, n_bytes
 
 
-def _served_checks(main: dict, serve_cfg, V: int, attn_per_call: int) -> dict:
+def _served_checks(main: dict, serve_cfg, V: int, attn_per_call: int,
+                   window_layers: int = 0) -> dict:
     out = main["out"]
-    want = _expected_launches(attn_per_call, main["calls"])
+    want = _expected_launches(attn_per_call, main["calls"], window_layers)
     return {
         "prefill_logits_finite": main["prefill_finite"],
         "every_request_done": len(out["requests"]) == serve_cfg.n_requests and all(
@@ -3135,7 +3231,7 @@ def _served_checks(main: dict, serve_cfg, V: int, attn_per_call: int) -> dict:
     }
 
 
-def _served_fields(main: dict, serve_cfg, attn_per_call: int) -> dict:
+def _served_fields(main: dict, serve_cfg, attn_per_call: int, window_layers: int = 0) -> dict:
     import dataclasses
 
     out, n_dec = main["out"], main["calls"]["decode_step"]
@@ -3146,7 +3242,8 @@ def _served_fields(main: dict, serve_cfg, attn_per_call: int) -> dict:
                 decode_steps=out["decode_steps"], peak_active=out["peak_active"],
                 first_token_step=out["first_token_step"], finish_step=out["finish_step"],
                 calls=main["calls"], launches=main["launches"],
-                expected_launches=_expected_launches(attn_per_call, main["calls"]))
+                expected_launches=_expected_launches(attn_per_call, main["calls"],
+                                                     window_layers))
 
 
 def phase_moe_slice(torch, profile: bool = False):
@@ -3424,6 +3521,111 @@ TRAIN_SLICE_EF_STEPS = 2    # int8_ef steps at full width, where the peak leaves
 EF_BYTES_PER_PARAM = 13     # the old and new fp32 error buffers, the int8 codes, fp32 grads
 TRAIN_LM_STEPS = 60         # the train_lm drill: a crash at half, resumes from the newest
 TRAIN_LM_EF_STEPS = 10
+
+
+KEXAONE = "k-exaone-236b-a23b"
+KEXAONE_LAYERS = 8   # two periods of "LLLG": 6 window layers, 2 global; 11 GB in bf16
+KEXAONE_DECODE = (200, 8)  # the decode check: prompt tokens, positions compared
+
+
+def phase_kexaone_slice(torch, profile: bool = False):
+    """``profile`` is taken as the other slices take it; the cell's traced runs
+    profile this model (``cardbench``), so this phase does not."""
+    import dataclasses
+
+    from cardbench import harness
+    from cardbench.reference import exaone_moe
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, init_cache, transformer
+
+    started = time.perf_counter()
+    allocated_before = _free_device(torch)
+    cfg = dataclasses.replace(registry.get(KEXAONE), n_layers=KEXAONE_LAYERS)
+    n_win = sum(map(cfg.windowed, range(cfg.n_layers)))
+    model = build_model(cfg)
+    # the kexaone-long-ttft cell's files at this depth: its weights (normal /
+    # sqrt(fan_in), norms one: the router's scores spread as in its check),
+    # its check's gap, limit and positions
+    run = harness.Run("kexaone-long-ttft", 0, 0.0, False,
+                      overrides={"config": {"num_hidden_layers": KEXAONE_LAYERS}})
+    run.torch = torch
+    driver = harness.load_module("drivers", run.traffic["driver"])
+    ref_cfg, limit, P = (driver.sizes(run.config), run.cell["limits"]["logit_err"],
+                         run.cell["check_positions"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = driver.make_weights(run, model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    V = cfg.vocab_size
+    tokens = torch.randint(0, V, (1, FULL_PREFILL), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(1))
+    # prompts of 32 tokens and 160 generated: every ring wraps
+    serve_cfg = serve.ServeConfig(
+        arch=KEXAONE, reduced=False, n_layers=KEXAONE_LAYERS, max_batch=4, max_len=512,
+        n_requests=4, prompt_len=32, gen_len=160, arrival_steps=(0, 4, 8, 12), device="cuda")
+    main = _full_width_main_path(torch, model, transformer, params, serve_cfg, tokens,
+                                 keep_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the cell's check at this depth: the prefill's last positions, and decode
+    # steps through the rings, against the fp32 reference
+    got = main.pop("logits")[0, -P:]
+    S, n_dec = KEXAONE_DECODE
+    seq = tokens[0, :S + n_dec]
+    with torch.inference_mode():
+        want = exaone_moe.logits_at(params, ref_cfg, [tokens[0]],
+                                    [list(range(FULL_PREFILL - P, FULL_PREFILL))])[0]
+        prefill_gaps = driver._gaps(got, want, V)
+        del got, want
+        logits, pre = model.prefill(params, seq[None, :S])
+        served = [logits[0, -1]]
+        cache = init_cache(model, 1, S + n_dec, "cuda")
+        cache["k"][:, :, :S], cache["v"][:, :, :S] = pre["k"], pre["v"]
+        cache["k_win"].copy_(pre["k_win"])
+        cache["v_win"].copy_(pre["v_win"])
+        del logits, pre
+        kv_len = torch.full((1,), S, dtype=torch.int32, device="cuda")
+        for j in range(n_dec - 1):
+            step, cache = model.decode_step(params, seq[S + j][None], cache, kv_len)
+            served.append(step[0])
+            kv_len += 1
+        want = exaone_moe.logits_at(params, ref_cfg, [seq], [list(range(S - 1, S + n_dec - 1))])
+        decode_gaps = driver._gaps(torch.stack(served), want[0], V)
+    del params, cache, served, want
+    _free_device(torch)
+
+    checks = _served_checks(main, serve_cfg, V, cfg.n_layers, n_win)
+    checks.update(prefill_logit_err=statistics.median(prefill_gaps) <= limit,
+                  decode_logit_err=statistics.median(decode_gaps) <= limit)
+    emit("kexaone_slice", seconds=time.perf_counter() - started, arch=KEXAONE, dtype=cfg.dtype,
+         n_layers=cfg.n_layers, n_layers_published=registry.get(KEXAONE).n_layers,
+         window_layers=n_win, window=cfg.window, experts_held=cfg.experts_held,
+         n_experts=cfg.n_experts, param_bytes=n_bytes, allocated_before_bytes=allocated_before,
+         init_s=init_s, peak_memory_bytes=peak, logit_err_limit=limit,
+         prefill_logit_err_median=statistics.median(prefill_gaps),
+         prefill_logit_err_positions=prefill_gaps, decode_prompt=S,
+         decode_logit_err_median=statistics.median(decode_gaps),
+         decode_logit_err_positions=decode_gaps,
+         **_served_fields(main, serve_cfg, cfg.n_layers, n_win), checks=checks,
+         ok=all(checks.values()))
+    if not all(checks.values()):
+        raise SystemExit(f"kexaone_slice checks failed: {checks}")
+    return main["launches"]
+
+
+def _window_row(attn: dict, launches: dict) -> dict:
+    """The kernels line's row of K4's windowed instance (no TPU kernel: the
+    JAX package has no window), timed at K-EXAONE's longest prompt."""
+    w = attn["flash_attention_window"]
+    return {"name": "flash_attention_window", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn_tc.cu",
+            "replaces": "none: the JAX package has no sliding window",
+            "launches": launches["flash_attention_window"], "max_abs_err": w["max_abs_err"],
+            "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+            "bound_by": w["bound_by"], "library_ms": None}
 
 
 def _parity_gap(got, want, recurrent_grads: bool) -> tuple[float, float, bool]:
@@ -5074,6 +5276,11 @@ def main() -> int:
         phase_attn_kernels(torch)
         phase_mm_attn_kernels(torch)
         return 0
+    if "--kexaone" in args:  # K4's window checked and timed, then its served path
+        attn = phase_attn_kernels(torch)
+        launches = phase_kexaone_slice(torch, profile=profile)
+        print(json.dumps({"kernels": [_window_row(attn, launches)]}), flush=True)
+        return 0
     if "--encode-order" in args:  # whisper's slice before and after the service phase
         for phase in (phase_audio_slice, phase_audio_slice, phase_service,
                       phase_audio_slice, phase_audio_slice, phase_audio_slice):
@@ -5135,7 +5342,7 @@ def main() -> int:
     phase_family_parity(torch)
     # each serving path's launches, read from its own run, summed over the paths
     for path in (phase_lm_slice, phase_vlm_slice, phase_audio_slice, phase_moe_slice,
-                 phase_ssm_slice, phase_hybrid_slice):
+                 phase_ssm_slice, phase_hybrid_slice, phase_kexaone_slice):
         for kname, n in path(torch, profile=profile).items():
             launches[kname] = launches.get(kname, 0) + n
     train_step_ms = phase_train(torch, profile)
@@ -5187,6 +5394,7 @@ def main() -> int:
             "bound_by": main_path["bound_by"],
             "library_ms": main_path["library_ms"],
         })
+    rows.append(_window_row(attn, launches))
     for kname, t in step_kernels.items():  # no TPU kernel: the plain chain around K2/K3
         rows.append({"name": kname, "route": "cuda",
                      "source": "src/repro_torch/kernels/fused_qat/csrc/fused_qat.cu",

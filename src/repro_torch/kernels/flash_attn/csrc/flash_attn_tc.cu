@@ -45,6 +45,15 @@
 //   last.  Skipping is exact: a skipped tile would give p = 0, alpha = 1.
 // * Ragged edges: rows past Sq are zero-filled on load and not stored; keys
 //   past Sk score -1e30.
+// * Sliding window (window > 0, causal): query i keeps the keys
+//   i - window < j <= i.  A q tile's key loop starts at the tile holding
+//   key q0 - window + 1, in the producer and the consumers alike, a
+//   warpgroup skips the tiles wholly below its rows' windows, and only the
+//   tiles that cross a row's lower edge are masked there.  So a window of
+//   128 reads 3-4 key tiles a q tile, whatever Sq.  The windowed instances
+//   are kernels of their own, flash_attn_tc_window_kernel<D>, so a device
+//   trace tells them apart; window == 0 launches flash_attn_tc_kernel<D>,
+//   whose code is the body's with the window compiled out.
 // Left for later: the ping-pong of softmax against the GEMMs between the
 // warpgroups, overlap of the two GEMMs inside a warpgroup, persistent
 // blocks and clusters.
@@ -71,6 +80,7 @@ constexpr float NEG = -1e30f;
 constexpr int ERR_NO_ENCODER = 10000;
 constexpr int ERR_ENCODE = 10001;  // + the CUresult
 constexpr int ERR_HEAD_DIM = 20001;
+constexpr int ERR_WINDOW = 20002;  // a window without the causal mask
 
 template <int D>
 struct Cfg {
@@ -204,12 +214,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Shared memory, from a 1024-byte aligned base: Q (DC chunks of BQ x 128 B)
 // | STAGES x (K: DC chunks of BK x 128 B, V: the same) | mbarriers
 // full[STAGES], empty[STAGES], q.
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
-                     const __grid_constant__ CUtensorMap kmap,
-                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                     int Sq, int Sk, int Hq, int G, int causal, float scale_log2, int n_qtiles) {
+// The kernels' body; WINDOW compiles the sliding window in (window > 0).
+template <int D, bool WINDOW>
+__device__ __forceinline__ void attend(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                       const CUtensorMap* vmap, __nv_bfloat16* __restrict__ out,
+                                       int Sq, int Sk, int Hq, int G, int causal, int window,
+                                       float scale_log2, int n_qtiles) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -223,6 +233,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = qt * BQ;
   const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
+  const int t_lo = WINDOW ? max(0, q0 - window + 1) / BK : 0;  // the first key tile
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -243,18 +254,18 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       mbar_expect_tx(q_bar, C::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < C::DC; ++c)
-        tma_load_4d(q_s + c * BQ * 128, &qmap, q_bar, 64 * c, hq, q0, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % C::STAGES;
-        const uint32_t lap = t / C::STAGES;
+        tma_load_4d(q_s + c * BQ * 128, qmap, q_bar, 64 * c, hq, q0, b);
+      for (int t = t_lo; t < n_tiles; ++t) {
+        const int s = (t - t_lo) % C::STAGES;
+        const uint32_t lap = (t - t_lo) / C::STAGES;
         if (lap > 0) mbar_wait(bars + 8 * (C::STAGES + s), (lap - 1) & 1);
         const uint32_t full = bars + 8 * s;
         const uint32_t k_s = ring + s * C::STAGE_BYTES, v_s = k_s + C::KV_BYTES;
         mbar_expect_tx(full, C::STAGE_BYTES);
 #pragma unroll
         for (int c = 0; c < C::DC; ++c) {
-          tma_load_4d(k_s + c * BK * 128, &kmap, full, 64 * c, hk, t * BK, b);
-          tma_load_4d(v_s + c * BK * 128, &vmap, full, 64 * c, hk, t * BK, b);
+          tma_load_4d(k_s + c * BK * 128, kmap, full, 64 * c, hk, t * BK, b);
+          tma_load_4d(v_s + c * BK * 128, vmap, full, 64 * c, hk, t * BK, b);
         }
       }
     }
@@ -273,11 +284,12 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // m in log2 units; l this thread's part
     mbar_wait(q_bar, 0);
 
-    for (int t = 0; t < n_tiles; ++t) {
-      const int s = t % C::STAGES;
-      mbar_wait(bars + 8 * s, (t / C::STAGES) & 1);
+    for (int t = t_lo; t < n_tiles; ++t) {
+      const int s = (t - t_lo) % C::STAGES;
+      mbar_wait(bars + 8 * s, ((t - t_lo) / C::STAGES) & 1);
       const int k0 = t * BK;
-      if (!causal || k0 <= row_lo + 63) {
+      // a tile wholly above the rows' diagonal, or wholly below their windows, adds nothing
+      if ((!causal || k0 <= row_lo + 63) && (!WINDOW || k0 + BK - 1 > row_lo - window)) {
         const uint32_t k_s = ring + s * C::STAGE_BYTES, v_s = k_s + C::KV_BYTES;
         float sc[32];
 #pragma unroll
@@ -296,8 +308,10 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         wg_wait0();
         fence_regs(sc);
 
-        // scale into log2 units; mask the diagonal tile and a ragged last tile
-        const bool mask = k0 + BK > Sk || (causal && k0 + BK - 1 > row_lo);
+        // scale into log2 units; mask the diagonal tile, a ragged last tile
+        // and (WINDOW) the tiles crossing a row's lower edge
+        const bool mask = k0 + BK > Sk || (causal && k0 + BK - 1 > row_lo) ||
+                          (WINDOW && k0 < row_lo + 64 - window);
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -305,8 +319,9 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             const int col = k0 + 8 * j + cl + e;
             float x0 = sc[4 * j + e] * scale_log2, x1 = sc[4 * j + 2 + e] * scale_log2;
             if (mask) {
-              if (col >= Sk || (causal && col > r0)) x0 = NEG;
-              if (col >= Sk || (causal && col > r0 + 8)) x1 = NEG;
+              if (col >= Sk || (causal && col > r0) || (WINDOW && col <= r0 - window)) x0 = NEG;
+              if (col >= Sk || (causal && col > r0 + 8) || (WINDOW && col <= r0 + 8 - window))
+                x1 = NEG;
             }
             sc[4 * j + e] = x0;
             sc[4 * j + 2 + e] = x1;
@@ -388,6 +403,26 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                     int Sq, int Sk, int Hq, int G, int causal, float scale_log2, int n_qtiles) {
+  attend<D, false>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, causal, 0, scale_log2, n_qtiles);
+}
+
+// causal attention through a sliding window of ``window`` keys
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tc_window_kernel(const __grid_constant__ CUtensorMap qmap,
+                            const __grid_constant__ CUtensorMap kmap,
+                            const __grid_constant__ CUtensorMap vmap,
+                            __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq, int G,
+                            int window, float scale_log2, int n_qtiles) {
+  attend<D, true>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, 1, window, scale_log2, n_qtiles);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -429,21 +464,27 @@ int make_map(CUtensorMap* map, const void* ptr, int n, int s, int h, int d, int 
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-           int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+           int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
+  if (window > 0 && !causal) return ERR_WINDOW;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, B, Sq, Hq, D, BQ);
   if (!err) err = make_map(&km, k, B, Sk, Hkv, D, BK);
   if (!err) err = make_map(&vm, v, B, Sk, Hkv, D, BK);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_attn_tc_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  const void* fn = window > 0 ? (const void*)flash_attn_tc_window_kernel<D>
+                              : (const void*)flash_attn_tc_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int n_qtiles = (Sq + BQ - 1) / BQ;
   dim3 grid(Hq, B, n_qtiles);
-  flash_attn_tc_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, Hq, Hq / Hkv, causal,
-      scale * 1.4426950408889634f, n_qtiles);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  if (window > 0)
+    flash_attn_tc_window_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+        qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, Hq, Hq / Hkv, window, scale_log2, n_qtiles);
+  else
+    flash_attn_tc_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
+        qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, Hq, Hq / Hkv, causal, scale_log2, n_qtiles);
   return (int)cudaGetLastError();
 }
 
@@ -464,16 +505,17 @@ size_t flash_attn_tc_shared_bytes(int d) {
   }
 }
 
+// window > 0 (causal only): query i keeps the keys i - window < j <= i.
 int flash_attn_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                  int Hq, int Hkv, int d, int causal, float scale, void* stream) {
+                  int Hq, int Hkv, int d, int causal, int window, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (d) {
-    case 32: return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
-    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
-    case 80: return launch<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
-    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
-    case 160: return launch<160>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
-    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, scale, st);
+    case 32: return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
+    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
+    case 80: return launch<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
+    case 160: return launch<160>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
+    case 256: return launch<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
     default: return ERR_HEAD_DIM;
   }
 }
@@ -482,6 +524,7 @@ const char* flash_attn_tc_error_string(int err) {
   static char msg[96];
   if (err == ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found through the runtime";
   if (err == ERR_HEAD_DIM) return "head dim not instantiated";
+  if (err == ERR_WINDOW) return "a sliding window needs the causal mask";
   if (err > ERR_ENCODE && err < ERR_HEAD_DIM) {
     snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed: CUresult %d", err - ERR_ENCODE);
     return msg;

@@ -14,7 +14,10 @@ it replaces, what bounds it and how the design answers.  Device rule: a
 tensor on the CPU takes the plain PyTorch version in ``ref``; a tensor on
 CUDA launches a kernel or raises.  There is no fallback between them.
 ``LAUNCHES`` counts launches: ``flash_attention`` every call, and
-``flash_attention_tc`` / ``flash_attention_fp32`` the variant that ran.
+``flash_attention_tc`` / ``flash_attention_fp32`` the variant that ran;
+``flash_attention_window`` the calls with a sliding window, which only the
+bf16 kernel takes (``flash_attn_tc_window_kernel``, a name of its own in a
+device trace; the fp32 kernel raises on one).
 The kernels have no backward: a CUDA call that autograd would record
 raises (``kernels.refuse_autograd``); training takes the plain versions of
 ``models/layers``, as the reference does.
@@ -41,7 +44,8 @@ MAX_SHARED_BYTES = 232448  # 227 KB, the most one Hopper block may opt into
 DTYPES = (torch.float32, torch.bfloat16)
 TC_HEAD_DIMS = (32, 64, 80, 128, 160, 256)  # the tensor-core kernel's instantiations
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_fp32": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0, "flash_attention_fp32": 0,
+            "flash_attention_window": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 
@@ -68,7 +72,7 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _lib_tc() -> ctypes.CDLL:
     lib = _build.load_library("flash_attn_tc", TC_SOURCES)
-    lib.flash_attn_tc.argtypes = [_vp] * 4 + [_int] * 7 + [ctypes.c_float, _vp]
+    lib.flash_attn_tc.argtypes = [_vp] * 4 + [_int] * 8 + [ctypes.c_float, _vp]
     lib.flash_attn_tc.restype = _int
     lib.flash_attn_tc_shared_bytes.argtypes = [_int]
     lib.flash_attn_tc_shared_bytes.restype = ctypes.c_size_t
@@ -118,11 +122,16 @@ def _check(q, k, v) -> tuple[int, ...]:
     return B, Sq, Sk, Hq, Hkv, d
 
 
-def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
-    """Online-softmax attention over the whole sequence; K4 on CUDA."""
+def flash_attention(q, k, v, causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """Online-softmax attention over the whole sequence; K4 on CUDA.
+    ``window`` (causal only): query i keeps the keys i - window < j <= i;
+    None or 0 is the full causal path."""
     B, Sq, Sk, Hq, Hkv, d = _check(q, k, v)
+    if window and (not causal or window < 1):
+        raise ValueError(f"a sliding window needs causal attention and window >= 1: {window}")
+    window = int(window or 0)
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal, window or None)
     refuse_autograd("K4 (flash_attn.ops.flash_attention)",
                     "models.layers.plain_attention or layers.flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -141,6 +150,8 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
         lib, fn, err_str = _lib_tc(), "flash_attn_tc", "flash_attn_tc_error_string"
         need = lib.flash_attn_tc_shared_bytes(d)
     else:
+        if window:
+            raise ValueError("the fp32 kernel has no sliding window: serve windowed layers in bf16")
         if Hq > 65535:
             raise ValueError(f"launch out of range: Hq={Hq}")
         lib, fn, err_str = _lib(), "flash_attn", "flash_attn_error_string"
@@ -151,12 +162,13 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
         raise ValueError(f"d={d} needs {need} bytes of shared memory a block")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, fn)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, d, int(causal), scale, stream,
-        )
+        args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, Sq, Sk, Hq, Hkv, d, int(causal)]
+        err = getattr(lib, fn)(*args, *([window] if kind == "tc" else []), scale, stream)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: {getattr(lib, err_str)(err).decode()}")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention_{kind}"] += 1
+    if window:
+        LAUNCHES["flash_attention_window"] += 1
     return out

@@ -21,7 +21,34 @@ __all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_tc_emulation"]
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
+def _keep(Sq: int, Sk: int, window: int | None, device, q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Sk) causal mask, and with ``window`` the keys j > i - window only;
+    query row r is position r + ``q_offset`` of the keys' axis."""
+    qpos = torch.arange(Sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(Sk, device=device)[None, :]
+    keep = qpos >= kpos
+    return keep & (qpos - kpos < window) if window else keep
+
+
+def flash_attention_ref(q, k, v, causal: bool = True, window: int | None = None,
+                        block_q: int = 0) -> torch.Tensor:
+    """``window`` (causal only): query i keeps the keys i - window < j <= i.
+    ``block_q``: the queries in blocks of that many (0: all at once), each
+    block over the keys in its reach only, so that a long windowed sequence
+    never holds its (Sq, Sk) scores."""
+    if block_q and q.shape[1] > block_q:
+        out = torch.empty_like(q)
+        for s0 in range(0, q.shape[1], block_q):
+            s1 = min(s0 + block_q, q.shape[1])
+            k0 = max(0, s0 - window + 1) if causal and window else 0
+            k1 = s1 if causal else k.shape[1]
+            out[:, s0:s1] = _attention(q[:, s0:s1], k[:, k0:k1], v[:, k0:k1], causal, window,
+                                       s0 - k0)
+        return out
+    return _attention(q, k, v, causal, window, 0)
+
+
+def _attention(q, k, v, causal: bool, window: int | None, q_offset: int) -> torch.Tensor:
     d = q.shape[-1]
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).to(torch.float32)                    # (B, Hq, Sq, d)
@@ -29,20 +56,19 @@ def flash_attention_ref(q, k, v, causal: bool = True) -> torch.Tensor:
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).to(torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", qt, kt) / (d ** 0.5)
     if causal:
-        Sq, Sk = s.shape[-2], s.shape[-1]
-        mask = (torch.arange(Sq, device=q.device)[:, None]
-                >= torch.arange(Sk, device=q.device)[None, :])
-        s = s.masked_fill(~mask, NEG_INF)
+        s = s.masked_fill(~_keep(s.shape[-2], s.shape[-1], window, q.device, q_offset), NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, vt).transpose(1, 2).to(q.dtype)
 
 
 def flash_attention_tc_emulation(q, k, v, causal: bool = True, block_k: int = 64,
-                                 p_dtype=torch.bfloat16) -> torch.Tensor:
+                                 p_dtype=torch.bfloat16, window: int | None = None) -> torch.Tensor:
     """The tensor-core K4's arithmetic, tile by tile: s = q.k in fp32, scaled
     by d^-1/2 * log2(e) into log2 units, masked to -1e30, exp2 against the
-    running max; l sums the fp32 p, and P.V takes p rounded to ``p_dtype``."""
+    running max; l sums the fp32 p, and P.V takes p rounded to ``p_dtype``.
+    With ``window`` every tile runs, masked: the kernel skips the tiles
+    wholly outside a row's window, which adds p = 0 after a real score."""
     d = q.shape[-1]
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).to(torch.float32)                    # (B, Hq, Sq, d)
@@ -62,6 +88,8 @@ def flash_attention_tc_emulation(q, k, v, causal: bool = True, block_k: int = 64
         valid = kpos < Sk
         if causal:
             valid = valid & (qpos >= kpos)
+            if window:
+                valid = valid & (qpos - kpos < window)
         s = s.masked_fill(~valid, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp2(s - m_new)

@@ -108,8 +108,10 @@ def plain_attention(
     v: torch.Tensor,  # (B, Sk, Hkv, d)
     causal: bool = True,
     q_offset: int = 0,
+    window: int | None = None,
 ) -> torch.Tensor:
-    """Reference O(S^2)-materialising attention, fp32 scores."""
+    """Reference O(S^2)-materialising attention, fp32 scores.  ``window``
+    (causal only): query i keeps the keys j with i - window < j <= i."""
     B, Sq, Hq, d = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -121,6 +123,8 @@ def plain_attention(
         qpos = torch.arange(Sq, device=q.device) + q_offset
         kpos = torch.arange(k.shape[1], device=q.device)
         mask = qpos[:, None] >= kpos[None, :]
+        if window:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
@@ -135,9 +139,11 @@ def flash_attention(
     block_k: int = 1024,
     q_offset: int = 0,
     p_dtype: torch.dtype = torch.float32,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Blocked online-softmax attention: the reference's ``lax.scan`` over KV
-    blocks as a Python loop.  Never materialises the (Sq, Sk) score matrix."""
+    blocks as a Python loop.  Never materialises the (Sq, Sk) score matrix.
+    ``window`` as in :func:`plain_attention`."""
     B, Sq, Hq, d = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -163,6 +169,8 @@ def flash_attention(
         valid = (kpos[None, :] < Sk).expand(Sq, block_k)
         if causal:
             valid = valid & (qpos[:, None] >= kpos[None, :])
+            if window:
+                valid = valid & (qpos[:, None] - kpos[None, :] < window)
         s = s.masked_fill(~valid, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None]).to(p_dtype)

@@ -52,6 +52,31 @@ names, shapes and layouts (layer parameters stacked on a leading
   residual MLP is ``cfg.moe_dense_residual``.  ``init_params`` draws the
   expert tensors a layer at a time (phi3.5-moe's ``we_gate`` alone would
   be 40 GB drawn whole in fp32).
+
+Beyond the reference (no twin in the JAX package; k-exaone-236b-a23b):
+
+* **Sliding-window layers** (``cfg.window``, ``cfg.window_pattern``): a
+  window layer's query i keeps the keys i - window < j <= i (K4's windowed
+  instance on the card); the global layers of such a model apply no RoPE
+  (EXAONE 4.0's rule).  Their caches differ: a global layer keeps ``k``/``v`` of
+  (B, Smax, Hkv, hd), a window layer a ring ``k_win``/``v_win`` of
+  (B, window, Hkv, hd) that position p writes at slot p % window; K5 reads
+  ``min(p + 1, window)`` slots of a ring in any order (keys are rotated
+  before they are cached).
+* **Post-norms** (``cfg.post_norm``): ``ln1``/``ln2`` norm the attention's
+  and the MLP's outputs, not their inputs; every norm takes
+  ``cfg.rms_norm_eps``.
+* **Leading dense layers** (``cfg.first_dense_layers``): ``w_gate``/``w_up``/
+  ``w_down`` stack those layers, the MoE tensors the rest.
+* **The dropless expert layer** (``cfg.experts_held``): one card's share of
+  an expert-parallel layer.  The router (DeepSeek-V3's: sigmoid scores, the
+  top-k weights normalised and scaled by ``cfg.routed_scale``) scores all
+  ``n_experts``; the card computes every (token, expert) pair that picked
+  one of its ``experts_held`` experts, with no capacity and no drop, adds
+  the shared experts (``ws_*``) and leaves out what the absent experts
+  would add.  The held experts' products are batched over zero-padded
+  slabs of one row count, which the groups' sizes set: they reach the host
+  once a layer; ``MOE_PAIRS`` counts the pairs.
 """
 
 from __future__ import annotations
@@ -93,11 +118,27 @@ __all__ = [
     "cache_write",
     "StateWriter",
     "normal_init",
+    "MOE_PAIRS",
+    "reset_moe_pairs",
 ]
 
 Specs = dict[str, tuple[tuple[int, ...], tuple[str | None, ...], str]]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the dropless expert layer's slabs: rows a multiple of this, so few shapes recur
+EXPERT_ROWS = 128
+
+# (token, expert) pairs of the dropless expert layer since the last reset:
+# routed to an expert held here (every one computed: the layer has no
+# capacity) and routed to one held elsewhere
+MOE_PAIRS = {"held": 0, "elsewhere": 0}
+
+
+def reset_moe_pairs() -> None:
+    for k in MOE_PAIRS:
+        MOE_PAIRS[k] = 0
+
 
 # ---------------------------------------------------------------------------
 # parameter specs
@@ -124,16 +165,24 @@ def param_specs(cfg: ModelConfig) -> Specs:
         s["k_norm"] = ((nl, hd), (None, None), dt)
     if cfg.family == "moe":
         eff = cfg.expert_d_ff or cfg.d_ff
-        s["router"] = ((nl, d, cfg.n_experts), (None, "embed", None), "float32")
+        nm = nl - cfg.first_dense_layers  # the MoE layers
+        E = cfg.experts_held or cfg.n_experts  # the experts held here
+        s["router"] = ((nm, d, cfg.n_experts), (None, "embed", None), "float32")
         e_in = (None, "experts", "expert_embed", "expert_ffn")
         e_out = (None, "experts", "expert_ffn", "expert_embed")
-        s["we_gate"] = ((nl, cfg.n_experts, d, eff), e_in, dt)
-        s["we_up"] = ((nl, cfg.n_experts, d, eff), e_in, dt)
-        s["we_down"] = ((nl, cfg.n_experts, eff, d), e_out, dt)
-        if cfg.moe_dense_residual:
-            s["w_gate"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
-            s["w_up"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
-            s["w_down"] = ((nl, cfg.d_ff, d), (None, "ffn", "embed"), dt)
+        s["we_gate"] = ((nm, E, d, eff), e_in, dt)
+        s["we_up"] = ((nm, E, d, eff), e_in, dt)
+        s["we_down"] = ((nm, E, eff, d), e_out, dt)
+        if cfg.n_shared_experts:
+            fs = cfg.n_shared_experts * eff
+            s["ws_gate"] = ((nm, d, fs), (None, "embed", "ffn"), dt)
+            s["ws_up"] = ((nm, d, fs), (None, "embed", "ffn"), dt)
+            s["ws_down"] = ((nm, fs, d), (None, "ffn", "embed"), dt)
+        if cfg.moe_dense_residual or cfg.first_dense_layers:
+            nw = cfg.first_dense_layers or nl
+            s["w_gate"] = ((nw, d, cfg.d_ff), (None, "embed", "ffn"), dt)
+            s["w_up"] = ((nw, d, cfg.d_ff), (None, "embed", "ffn"), dt)
+            s["w_down"] = ((nw, cfg.d_ff, d), (None, "ffn", "embed"), dt)
     else:
         s["w_gate"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
         s["w_up"] = ((nl, d, cfg.d_ff), (None, "embed", "ffn"), dt)
@@ -180,16 +229,21 @@ def normal_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
 # blocks
 # ---------------------------------------------------------------------------
 
-def attend(q, k, v, causal: bool, plain=L.plain_attention, train: bool = False):
+def attend(q, k, v, causal: bool, plain=L.plain_attention, train: bool = False,
+           window: int | None = None):
     """Full-sequence attention: K4 on a CUDA tensor; on the CPU, or with
     ``train`` on any device, ``plain``, the plain version the reference's
     model picks (and trains through); on a DTensor, the same choice on
-    each device's shards (``parallel.local``)."""
+    each device's shards (``parallel.local``).  ``window``: a sliding
+    window of that many keys (plain tensors only)."""
+    kw = {"window": window} if window else {}
     if is_dtensor(q):
+        if window:
+            raise NotImplementedError("sliding-window attention on a DTensor")
         return local_ops.attention(plain, q, k, v, causal, train)
     if q.is_cuda and not train:
-        return flash_ops.flash_attention(q, k, v, causal=causal)
-    return plain(q, k, v, causal=causal)
+        return flash_ops.flash_attention(q, k, v, causal=causal, **kw)
+    return plain(q, k, v, causal=causal, **kw)
 
 
 def decode_attend(q, k_cache, v_cache, kv_len):
@@ -202,23 +256,27 @@ def decode_attend(q, k_cache, v_cache, kv_len):
     return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
 
 
-def _attention_block(x, lp, cfg: ModelConfig, rope, plain, train: bool):
+def _attention_block(x, lp, cfg: ModelConfig, rope, plain, train: bool, window=None):
     """x: (B, S, d); lp: one layer's params (leading axis stripped); rope:
-    ``layers.rope_angles`` of the positions."""
+    ``layers.rope_angles`` of the positions, or None (no positions);
+    ``window``: the layer's sliding window, or None."""
     B, S, d = x.shape
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    h = L.rms_norm(x, lp["ln1"])
+    hd, Hq, Hkv, eps = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps
+    h = x if cfg.post_norm else L.rms_norm(x, lp["ln1"], eps)
     kv_axes = ("batch", None, "kv_heads", None)
     q = act_reshape(L.dense(h, lp["wq"]), (B, S, Hq, hd), attn_q_axes(Hq))
     k = act_reshape(L.dense(h, lp["wk"]), (B, S, Hkv, hd), kv_axes)
     v = act_reshape(L.dense(h, lp["wv"]), (B, S, Hkv, hd), kv_axes)
     if cfg.qk_norm:
-        q = L.rms_norm(q, lp["q_norm"])
-        k = L.rms_norm(k, lp["k_norm"])
-    q = L.rotate(q, *rope)
-    k = L.rotate(k, *rope)
-    o = attend(q, k, v, True, plain, train)
+        q = L.rms_norm(q, lp["q_norm"], eps)
+        k = L.rms_norm(k, lp["k_norm"], eps)
+    if rope is not None:
+        q = L.rotate(q, *rope)
+        k = L.rotate(k, *rope)
+    o = attend(q, k, v, True, plain, train, window)
     o = L.dense(o.reshape(B, S, Hq * hd), lp["wo"])
+    if cfg.post_norm:
+        o = L.rms_norm(o, lp["ln1"], eps)
     return x + act_constrain(o, lm_act_axes(Hq)), (k, v)
 
 
@@ -276,12 +334,58 @@ def _moe_combine(y, slot, topv):
     return per_k.sum(2)
 
 
+def _moe_dropless(h, lp, cfg: ModelConfig):
+    """One card's share of a dropless expert-parallel layer over (B, S, d)
+    activations, DeepSeek-V3's router: sigmoid scores of the fp32 router
+    over all ``n_experts``, the top-k of them normalised over their sum +
+    1e-20 and scaled by ``routed_scale``; every pair that picked one of the
+    experts held here (the first ``experts_held``) is computed, weighted in
+    fp32 and summed into its token; the shared experts are added in the
+    model's dtype.  The absent experts' part is left out.
+
+    The held experts run as three batched products over (held, M, d): each
+    expert's pairs in token order from row 0 of its slab, the rest zero, M
+    the largest group rounded up to ``EXPERT_ROWS``.  M is the layer's one
+    wait for the device."""
+    B, S, d = h.shape
+    K, H = cfg.top_k, cfg.experts_held
+    x = h.reshape(B * S, d)
+    logits = torch.matmul(x.to(torch.float32), lp["router"].to(torch.float32))
+    topv, topi = torch.topk(torch.sigmoid(logits), K, dim=-1)
+    w = (topv / (topv.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale).reshape(-1)
+    key = torch.clamp(topi.reshape(-1), max=H)  # H: held elsewhere
+    sizes = torch.zeros(H + 1, dtype=torch.int64, device=h.device).index_add_(
+        0, key, torch.ones_like(key))
+    counts = sizes.tolist()  # on the host: the one synchronisation of the layer
+    n_held = sum(counts[:H])
+    MOE_PAIRS["held"] += n_held
+    MOE_PAIRS["elsewhere"] += counts[H]
+    out = torch.zeros((B * S, d), dtype=torch.float32, device=h.device)
+    if n_held:
+        M = -(-max(counts[:H]) // EXPERT_ROWS) * EXPERT_ROWS
+        pairs = torch.argsort(key, stable=True)[:n_held]  # grouped by expert, in token order
+        tok, e = pairs // K, key[pairs]
+        first = torch.cumsum(sizes, 0) - sizes  # each group's first pair
+        row = e * M + torch.arange(n_held, device=h.device) - first[e]
+        xe = x.new_zeros((H * M, d)).index_copy_(0, row, x[tok]).view(H, M, d)
+        y = torch.bmm(F.silu(torch.bmm(xe, lp["we_gate"])) * torch.bmm(xe, lp["we_up"]),
+                      lp["we_down"])
+        out.index_add_(0, tok, y.view(H * M, d)[row].to(torch.float32) * w[pairs, None])
+    out = out.to(h.dtype)
+    if cfg.n_shared_experts:
+        out = out + L.swiglu(x, lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+    return out.reshape(B, S, d)
+
+
 def _moe_block(h, lp, cfg: ModelConfig):
     """Capacity-bounded top-k MoE over (B, S, d) activations, index dispatch
     (:func:`_moe_dispatch`), the expert products batched over the expert
     axis, each (token, k)'s output gathered back and weighted by its gate
     (:func:`_moe_combine`).  A DTensor step dispatches and combines on each
-    batch shard (``parallel.local``)."""
+    batch shard (``parallel.local``).  With ``cfg.experts_held``, the
+    dropless layer (:func:`_moe_dropless`)."""
+    if cfg.experts_held:
+        return _moe_dropless(h, lp, cfg)
     distributed = is_dtensor(h)
     if distributed:
         xe, slot, topv = local_ops.moe_dispatch(_moe_dispatch, h, lp["router"], cfg)
@@ -316,26 +420,31 @@ def _moe_block(h, lp, cfg: ModelConfig):
 
 
 def _mlp(h, lp, cfg: ModelConfig):
-    """SwiGLU, or the MoE block.  h: (B, S, d), or (B, d) for a decode token,
-    which the MoE block sees as (B, 1, d), as in the reference."""
-    if cfg.family == "moe":
+    """SwiGLU, or the MoE block (a layer that holds a router).  h: (B, S, d),
+    or (B, d) for a decode token, which the MoE block sees as (B, 1, d), as
+    in the reference.  The MoE block of a full sequence is a span."""
+    if "router" in lp:
         if h.dim() == 2:
             return _moe_block(h[:, None], lp, cfg)[:, 0]
-        return _moe_block(h, lp, cfg)
+        with spans.span(SPAN_MOE):
+            return _moe_block(h, lp, cfg)
     return L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
-def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False):
+def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False, window=None):
+    eps = cfg.rms_norm_eps
     x = act_constrain(x, lm_act_axes(cfg.n_heads))
-    x, kv = _attention_block(x, lp, cfg, rope, plain, train)
-    x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg)
+    x, kv = _attention_block(x, lp, cfg, rope, plain, train, window)
+    if cfg.post_norm:
+        x = x + L.rms_norm(_mlp(x, lp, cfg), lp["ln2"], eps)
+    else:
+        x = x + _mlp(L.rms_norm(x, lp["ln2"], eps), lp, cfg)
     return act_constrain(x, lm_act_axes(cfg.n_heads)), kv
 
 
-_LAYER_KEYS = (
-    "ln1", "ln2", "wq", "wk", "wv", "wo", "q_norm", "k_norm",
-    "router", "we_gate", "we_up", "we_down", "w_gate", "w_up", "w_down",
-)
+_DENSE_KEYS = ("w_gate", "w_up", "w_down")
+_MOE_KEYS = ("router", "we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
+_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "q_norm", "k_norm") + _MOE_KEYS + _DENSE_KEYS
 
 
 def _split_layer_params(params):
@@ -344,8 +453,41 @@ def _split_layer_params(params):
     return stacked, rest
 
 
-def _layer_params(stacked, i: int):
-    return {k: v[i] for k, v in stacked.items()}
+def _first(k: str, cfg: ModelConfig | None) -> tuple[int, int]:
+    """The layers [first, end) whose parameter ``k`` is stacked: with
+    ``cfg.first_dense_layers`` the dense MLP stacks the leading layers and
+    the MoE tensors the others; every other parameter stacks all layers."""
+    nd = cfg.first_dense_layers if cfg is not None else 0
+    if nd and k in _MOE_KEYS:
+        return nd, cfg.n_layers
+    if nd and k in _DENSE_KEYS:
+        return 0, nd
+    return 0, 1 << 30
+
+
+def _layer_params(stacked, i: int, cfg: ModelConfig | None = None):
+    """Layer i's parameters (see :func:`_first`)."""
+    if cfg is None or not cfg.first_dense_layers:
+        return {k: v[i] for k, v in stacked.items()}
+    out = {}
+    for k, v in stacked.items():
+        a, b = _first(k, cfg)
+        if a <= i < b:
+            out[k] = v[i - a]
+    return out
+
+
+def _layers(stacked, cfg: ModelConfig) -> list[dict]:
+    """Every layer's parameters as :func:`unstack` makes them, views by one
+    ``unbind`` a stacked tensor, for stacks that start at another layer too."""
+    if not cfg.first_dense_layers:
+        return unstack(stacked)
+    out = [{} for _ in range(cfg.n_layers)]
+    for k, v in stacked.items():
+        a = _first(k, cfg)[0]
+        for j, view in enumerate(v.unbind(0)):
+            out[a + j][k] = view
+    return out
 
 
 def unstack(stacked: dict) -> list[dict]:
@@ -380,7 +522,7 @@ def _choose_attn(cfg: ModelConfig, seq_len: int):
 
 
 def _head(x, rest, cfg: ModelConfig):
-    x = L.rms_norm(x, rest["final_norm"])
+    x = L.rms_norm(x, rest["final_norm"], cfg.rms_norm_eps)
     head = rest["embed"].T if cfg.tie_embeddings else rest["lm_head"]
     return L.dense(x, head)
 
@@ -391,9 +533,10 @@ def _head(x, rest, cfg: ModelConfig):
 
 # the spans of a full sequence (``repro_torch.spans``): a prefill; its inputs
 # (embeddings, the patches through the ADC frontend, RoPE, the cache); each
-# decoder layer; the final norm and lm head.  ``decode_step`` records none
+# decoder layer, and inside it each MoE block; the final norm and lm head.
+# ``decode_step`` records none
 SPAN_PREFILL, SPAN_INPUTS = "model.prefill", "model.inputs"
-SPAN_LAYER, SPAN_HEAD = "model.layer", "model.head"
+SPAN_LAYER, SPAN_HEAD, SPAN_MOE = "model.layer", "model.head", "model.moe"
 
 
 def _patches(pe, rest, cfg: ModelConfig, dtype):
@@ -414,18 +557,26 @@ def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: b
         B, S = x.shape[:2]
         rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
         plain = _choose_attn(cfg, S)
+        if cfg.window and is_dtensor(x):
+            raise NotImplementedError("sliding-window layers on a DTensor")
         cache = None
         if keep_cache and not is_dtensor(x):
-            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-            cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device) for n in ("k", "v")}
+            cache = _prefill_cache(cfg, B, S, x.dtype, x.device)
         states = StateWriter(cache, keep_cache and cache is None)
-        layers = unstack(stacked)
+        layers = _layers(stacked, cfg)
+    slot = _cache_slots(cfg)
     for i, lp in enumerate(layers):
+        win = cfg.window if cfg.windowed(i) else None
+        lrope = rope if win or not cfg.window else None
         # around the call, never inside _layer: a checkpointed recompute records nothing
         with spans.span(SPAN_LAYER):
-            x, (k, v) = remat(_layer, x, lp, cfg, rope, plain, train, train=train, cfg=cfg)
-            if keep_cache:
-                states.put(i, k=k, v=v)
+            x, (k, v) = remat(_layer, x, lp, cfg, lrope, plain, train, win, train=train,
+                              cfg=cfg)
+            if keep_cache and win:
+                _ring_fill(cache["k_win"][slot[i]], k)
+                _ring_fill(cache["v_win"][slot[i]], v)
+            elif keep_cache:
+                states.put(slot[i], k=k, v=v)
     with spans.span(SPAN_HEAD):
         logit_axes = ("batch", lm_act_axes(cfg.n_heads)[1], "vocab")
         logits = act_constrain(_head(x, rest, cfg), logit_axes)
@@ -453,7 +604,10 @@ def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
 def prefill(params, tokens, cfg: ModelConfig, patch_embeds=None):
     """Full-sequence forward that also returns the KV cache.
 
-    Returns (logits (B, P + S, V), cache {k,v: (L, B, P + S, Hkv, hd)}).
+    Returns (logits (B, P + S, V), cache {k,v: (L, B, P + S, Hkv, hd)}); with
+    a sliding window, k/v hold the global layers and k_win/v_win the window
+    layers' rings (L_win, B, window, Hkv, hd), holding the last ``window``
+    positions.
     """
     return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=True)
 
@@ -464,7 +618,10 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     Args:
       token: (B,) integer current token.
       cache: {"k","v"}: (L, B, Smax, Hkv, hd); position ``kv_len`` is written
-        in place.
+        in place.  With a sliding window, k/v hold the global layers and
+        {"k_win","v_win"} (L_win, B, window, Hkv, hd) the window layers'
+        rings, written at ``kv_len % window`` and read over
+        ``min(kv_len + 1, window)`` slots.
       kv_len: (B,) int32 current lengths (same for all layers).
     Returns: (logits (B, V), the same cache dict).  A DTensor cache (a plan
     traced on a mesh) is rebuilt as the reference does, by its where-update,
@@ -472,9 +629,11 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     """
     stacked, rest = _split_layer_params(params)
     B = token.shape[0]
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    hd, Hq, Hkv, eps, W = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps, cfg.window
     Smax = cache["k"].shape[2]
     x = act_constrain(L.embed(rest["embed"], token), ("batch", None))  # (B, d)
+    if W and is_dtensor(cache["k"]):
+        raise NotImplementedError("sliding-window layers on a DTensor")
     states = StateWriter(cache, is_dtensor(cache["k"]))
     pos = kv_len
     rows = torch.arange(B, device=x.device)
@@ -483,25 +642,40 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     at = pos.clamp(max=Smax - 1)
     attn_len = pos + 1
     cos, sin = L.rope_angles(pos[:, None], hd, cfg.rope_theta)
+    slot = _cache_slots(cfg)
     for i in range(cfg.n_layers):
-        lp = _layer_params(stacked, i)
+        lp = _layer_params(stacked, i, cfg)
+        win = cfg.windowed(i)
         x = act_constrain(x, ("batch", None))
-        h = L.rms_norm(x, lp["ln1"])
+        h = x if cfg.post_norm else L.rms_norm(x, lp["ln1"], eps)
         # the reference constrains none of these; a DTensor must (act_reshape)
         q = act_reshape(torch.matmul(h, lp["wq"]), (B, Hq, hd), ("batch", "heads", None))
         k = act_reshape(torch.matmul(h, lp["wk"]), (B, Hkv, hd), ("batch", "kv_heads", None))
         v = act_reshape(torch.matmul(h, lp["wv"]), (B, Hkv, hd), ("batch", "kv_heads", None))
         if cfg.qk_norm:
-            q = L.rms_norm(q, lp["q_norm"])
-            k = L.rms_norm(k, lp["k_norm"])
-        q = L.rotate(q[:, None], cos, sin)[:, 0]
-        k = L.rotate(k[:, None], cos, sin)[:, 0]
-        kc, vc = cache_write(cache["k"][i], cache["v"][i], k, v, rows, at, inside, pos)
-        if states.stacked:  # a plain cache was written in place
-            states.put(i, k=kc, v=vc)
-        o = decode_attend(q, kc, vc, attn_len)
-        x = x + torch.matmul(o.reshape(B, Hq * hd), lp["wo"])
-        x = x + _mlp(L.rms_norm(x, lp["ln2"]), lp, cfg)
+            q = L.rms_norm(q, lp["q_norm"], eps)
+            k = L.rms_norm(k, lp["k_norm"], eps)
+        if win or not W:
+            q = L.rotate(q[:, None], cos, sin)[:, 0]
+            k = L.rotate(k[:, None], cos, sin)[:, 0]
+        if win:
+            j = slot[i]
+            kc, vc = cache_write(cache["k_win"][j], cache["v_win"][j], k, v, rows, pos % W,
+                                 inside, pos)
+            o = decode_attend(q, kc, vc, torch.clamp(attn_len, max=W))
+        else:
+            kc, vc = cache_write(cache["k"][slot[i]], cache["v"][slot[i]], k, v, rows, at,
+                                 inside, pos)
+            if states.stacked:  # a plain cache was written in place
+                states.put(slot[i], k=kc, v=vc)
+            o = decode_attend(q, kc, vc, attn_len)
+        o = torch.matmul(o.reshape(B, Hq * hd), lp["wo"])
+        if cfg.post_norm:
+            x = x + L.rms_norm(o, lp["ln1"], eps)
+            x = x + L.rms_norm(_mlp(x, lp, cfg), lp["ln2"], eps)
+        else:
+            x = x + o
+            x = x + _mlp(L.rms_norm(x, lp["ln2"], eps), lp, cfg)
     return act_constrain(_head(x, rest, cfg), ("batch", "vocab")), states.done()
 
 
@@ -520,10 +694,44 @@ def cache_write(kc, vc, k, v, rows, at, inside, pos):
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Specs:
+    """k/v (L, batch, max_len, Hkv, hd); with a sliding window, k/v of the
+    global layers and rings k_win/v_win (L_win, batch, window, Hkv, hd)."""
     hd, Hkv = cfg.hd, cfg.n_kv_heads
-    shape = (cfg.n_layers, batch, max_len, Hkv, hd)
+    n_win = sum(map(cfg.windowed, range(cfg.n_layers)))
+    shape = (cfg.n_layers - n_win, batch, max_len, Hkv, hd)
     axes = (None, "batch", None, "kv_heads", "head_dim")
-    return {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+    specs = {"k": (shape, axes, cfg.dtype), "v": (shape, axes, cfg.dtype)}
+    if cfg.window:
+        ring = (n_win, batch, cfg.window, Hkv, hd)
+        specs.update(k_win=(ring, axes, cfg.dtype), v_win=(ring, axes, cfg.dtype))
+    return specs
+
+
+def _cache_slots(cfg: ModelConfig) -> list[int]:
+    """Each layer's index among the layers of its kind (global or window)."""
+    seen = [0, 0]
+    out = []
+    for i in range(cfg.n_layers):
+        w = int(cfg.windowed(i))
+        out.append(seen[w])
+        seen[w] += 1
+    return out
+
+
+def _prefill_cache(cfg: ModelConfig, B: int, S: int, dtype, device) -> dict:
+    """The caches a prefill of S positions fills: ``cache_specs`` at
+    max_len S (the rings zeroed: a prompt shorter than the window fills part)."""
+    return {n: (torch.zeros if n.endswith("_win") else torch.empty)(
+                shape, dtype=dtype, device=device)
+            for n, (shape, _, _) in cache_specs(cfg, B, S).items()}
+
+
+def _ring_fill(ring, t) -> None:
+    """A window layer's ring (B, W, Hkv, hd) given the last W positions of
+    t (B, S, Hkv, hd), position p at slot p % W."""
+    W, S = ring.shape[1], t.shape[1]
+    n = min(S, W)
+    ring[:, torch.arange(S - n, S, device=t.device) % W] = t[:, S - n:]
 
 
 class StateWriter:

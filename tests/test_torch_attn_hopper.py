@@ -121,7 +121,8 @@ def test_k4_variant_rejects_other_dtypes_and_cpu_keeps_the_plain_path():
 
 
 def test_k4_counters_name_both_variants():
-    assert set(fa.LAUNCHES) == {"flash_attention", "flash_attention_tc", "flash_attention_fp32"}
+    assert set(fa.LAUNCHES) == {"flash_attention", "flash_attention_tc", "flash_attention_fp32",
+                                "flash_attention_window"}
     fa.LAUNCHES["flash_attention_tc"] = 3
     fa.reset_launch_counts()
     assert set(fa.LAUNCHES.values()) == {0}
