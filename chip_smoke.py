@@ -22,9 +22,10 @@
                                       # later encode in one process; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
-    python3 chip_smoke.py --kexaone   # build, then phases 7 and 17b only (K4's window
-                                      # checked and timed, K-EXAONE's served path),
-                                      # and one kernels line: its window row
+    python3 chip_smoke.py --kexaone   # build, then phases 7, 17c and 17b only (K4's
+                                      # window and the norm kernel checked and timed,
+                                      # K-EXAONE's served path), and one kernels line:
+                                      # the window's and the norm's rows
     python3 chip_smoke.py --train     # build, then phases 18-22 only (LM training; with
                                       # --profile, a full-width step profiled), and
                                       # stop: no result lines
@@ -246,8 +247,23 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 decode step, counted in that run alone; the prefill's last
                 positions and 8 decode steps after a 200-token prefill against
                 the plain fp32 reference (``cardbench/reference/exaone_moe``),
-                the median gap a position within the cell's ``logit_err`` limit.
-Phases 15-17b run after phase 14.
+                the median gap a position within the cell's ``logit_err`` limit;
+                the norm kernel 33 launches a prefill and a decode step (16
+                of them with the residual).
+17c. norm_kernel
+                the RMS norm kernel (``kernels/rms_norm``) against
+                ``layers.rms_norm`` on the card at K-EXAONE's prefill shapes
+                (S 4096 and 32768: d 6144, q's 64 and k's 8 heads of 128) and
+                a decode step's, bf16 and fp32, with and without the residual:
+                99.9% of rows bit-equal in bf16, any other one ulp of inv off
+                (each element within 3 ulps: ``tests/_torch_rms_norm.py``), fp32
+                within 2e-6; one launch a call, the same bits twice; 32768 x
+                6144 and 32768 x 64 x 128 in bf16 timed beside the plain chain
+                and the byte bound.
+Phases 15-17b run after phase 14, 17c after phase 7.  Slices 13, 15-17b
+count the norm kernel's launches too: (2 + 2 with q/k norms) x layers + 1 a
+prefill or decode step of the transformer family, none of rwkv6's or
+zamba2's (they keep ``layers.rms_norm``).
 18. train_guard K4 and K5 on the card raise when autograd would record the
                 call (q, k or v requiring grad, gradients on) and launch
                 nothing; under ``no_grad`` each launches once.
@@ -292,7 +308,9 @@ Phases 18-22 run after phase 17.
                 and caches bit-equal to the model's ``prefill`` and
                 ``decode_step``, K4 48 (tensor-core variant) and K5 48 launched;
                 then both steps on DTensor parameters, inputs and caches (the
-                prefill at B = 2): K4 48 and K5 48 again, the model's bits;
+                prefill at B = 2): K4 48 and K5 48 again, the bits of the
+                model's calls with plain norms (a DTensor keeps
+                ``layers.rms_norm``);
                 each step's card time (CUDA events) beside its ``op_cost``
                 count at the same shapes (a host count of the plain versions'
                 work) with each layer's plain attention replaced by the
@@ -343,6 +361,7 @@ the repository beside it, the script fails and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import math
@@ -2753,6 +2772,7 @@ def phase_vlm_slice(torch, profile: bool = False):
     from repro_torch.configs import registry
     from repro_torch.core import adc
     from repro_torch.kernels.pruned_quant import ref as pq_ref
+    from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.models import build_model, exact_n_params, init_cache, transformer
 
     allocated_before = _free_device(torch)
@@ -2776,6 +2796,7 @@ def phase_vlm_slice(torch, profile: bool = False):
     try:
         # -- the main path: counts set to 0 just before, read just after
         read_counts = _reset_all_counts()
+        nops.reset_launch_counts()
         with torch.inference_mode():
             request_prefill_ms = []
             for _ in range(2):  # the first call includes cuBLAS's set-up for these shapes
@@ -2808,7 +2829,7 @@ def phase_vlm_slice(torch, profile: bool = False):
                 long_ms.append((time.perf_counter() - t0) * 1e3)
             long_finite = bool(torch.isfinite(lg).all())
             del lg
-        launches = read_counts()
+        launches = {**read_counts(), **nops.LAUNCHES}
         main_calls = dict(calls)
     finally:
         for n, f in originals.items():
@@ -2866,7 +2887,10 @@ def phase_vlm_slice(torch, profile: bool = False):
     del params
     want = {"pruned_quantize": main_calls["prefill"],
             "flash_attention": cfg.n_layers * main_calls["prefill"],
-            "decode_attention": cfg.n_layers * main_calls["decode_step"]}
+            "decode_attention": cfg.n_layers * main_calls["decode_step"],
+            # ln1, ln2 a layer and the final norm, a prefill or a decode step: 97
+            "rms_norm": _norms_a_call(transformer, cfg)[0] * sum(main_calls.values()),
+            "rms_norm_residual": 0}
     want.update(k4_variants(want["flash_attention"]))
     checks = {
         "prefill_logits_finite": prefill_finite and long_finite,
@@ -3074,6 +3098,7 @@ def _full_width_main_path(torch, model, module, params, serve_cfg, tokens,
     run alone: a prefill of ``tokens`` (B = 1) twice (the first includes
     cuBLAS's set-up), then ``serve.run``; the last prefill's logits kept
     when asked."""
+    from repro_torch.kernels.rms_norm import ops as nops
     from repro_torch.launch import serve
 
     calls = {"prefill": 0, "decode_step": 0}
@@ -3081,6 +3106,7 @@ def _full_width_main_path(torch, model, module, params, serve_cfg, tokens,
     try:
         # -- the main path: counts set to 0 just before, read just after
         read_counts = _reset_all_counts()
+        nops.reset_launch_counts()
         prefill_ms = []
         with torch.inference_mode():
             for _ in range(2):
@@ -3095,7 +3121,7 @@ def _full_width_main_path(torch, model, module, params, serve_cfg, tokens,
         t0 = time.perf_counter()
         out = serve.run(serve_cfg, params=params)
         serve_s = time.perf_counter() - t0
-        launches = read_counts()
+        launches = {**read_counts(), **nops.LAUNCHES}
         main_calls = dict(calls)
     finally:
         for n, f in originals.items():
@@ -3104,11 +3130,27 @@ def _full_width_main_path(torch, model, module, params, serve_cfg, tokens,
                 launches=launches, calls=main_calls, logits=logits if keep_logits else None)
 
 
-def _expected_launches(attn_per_call: int, calls: dict, window_layers: int = 0) -> dict:
+def _norms_a_call(module, cfg) -> tuple[int, int]:
+    """RMS norms a prefill or a decode step sends to the norm kernel, and how
+    many of them add the residual: the transformer family's ln1 and ln2 (and
+    q/k norms) a layer, the final norm; the other families keep
+    ``layers.rms_norm``."""
+    from repro_torch.models import transformer
+
+    if module is not transformer:
+        return 0, 0
+    per_layer = 4 if cfg.qk_norm else 2
+    return per_layer * cfg.n_layers + 1, 2 * cfg.n_layers if cfg.post_norm else 0
+
+
+def _expected_launches(attn_per_call: int, calls: dict, window_layers: int = 0,
+                       norms: tuple[int, int] = (0, 0)) -> dict:
     want = {"pruned_quantize": 0, "flash_attention": attn_per_call * calls["prefill"],
             "decode_attention": attn_per_call * calls["decode_step"]}
     want.update(k4_variants(want["flash_attention"]))
     want["flash_attention_window"] = window_layers * calls["prefill"]
+    n_calls = calls["prefill"] + calls["decode_step"]
+    want.update(rms_norm=norms[0] * n_calls, rms_norm_residual=norms[1] * n_calls)
     return want
 
 
@@ -3218,9 +3260,9 @@ def _draw(torch, model, seed: int):
 
 
 def _served_checks(main: dict, serve_cfg, V: int, attn_per_call: int,
-                   window_layers: int = 0) -> dict:
+                   window_layers: int = 0, norms: tuple[int, int] = (0, 0)) -> dict:
     out = main["out"]
-    want = _expected_launches(attn_per_call, main["calls"], window_layers)
+    want = _expected_launches(attn_per_call, main["calls"], window_layers, norms)
     return {
         "prefill_logits_finite": main["prefill_finite"],
         "every_request_done": len(out["requests"]) == serve_cfg.n_requests and all(
@@ -3231,7 +3273,8 @@ def _served_checks(main: dict, serve_cfg, V: int, attn_per_call: int,
     }
 
 
-def _served_fields(main: dict, serve_cfg, attn_per_call: int, window_layers: int = 0) -> dict:
+def _served_fields(main: dict, serve_cfg, attn_per_call: int, window_layers: int = 0,
+                   norms: tuple[int, int] = (0, 0)) -> dict:
     import dataclasses
 
     out, n_dec = main["out"], main["calls"]["decode_step"]
@@ -3243,7 +3286,7 @@ def _served_fields(main: dict, serve_cfg, attn_per_call: int, window_layers: int
                 first_token_step=out["first_token_step"], finish_step=out["finish_step"],
                 calls=main["calls"], launches=main["launches"],
                 expected_launches=_expected_launches(attn_per_call, main["calls"],
-                                                     window_layers))
+                                                     window_layers, norms))
 
 
 def phase_moe_slice(torch, profile: bool = False):
@@ -3315,7 +3358,8 @@ def phase_moe_slice(torch, profile: bool = False):
     d, f, E = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
     layer_bytes = n_bytes - 2 * cfg.padded_vocab * d * 2
     expert_flops = 2 * 3 * E * C * d * f * cfg.n_layers
-    checks = _served_checks(main, serve_cfg, V, cfg.n_layers)
+    norms = _norms_a_call(transformer, cfg)
+    checks = _served_checks(main, serve_cfg, V, cfg.n_layers, norms=norms)
     checks.update(decode_matches_prefill=dvp.pop("consistent"), scheduling_independent=same_tokens)
     emit("moe_slice", seconds=time.perf_counter() - started, arch=PHI, dtype=cfg.dtype,
          n_layers=cfg.n_layers,
@@ -3331,7 +3375,7 @@ def phase_moe_slice(torch, profile: bool = False):
                     "decode_step_bound_ms": layer_bytes / HBM_BYTES_PER_S * 1e3,
                     "prefill_expert_flops": expert_flops,
                     "prefill_expert_bound_ms": expert_flops / BF16_FLOPS * 1e3},
-         **_served_fields(main, serve_cfg, cfg.n_layers),
+         **_served_fields(main, serve_cfg, cfg.n_layers, norms=norms),
          decode_check_layers=MOE_CHECK_LAYERS, decode_check_capacity_factor=MOE_CHECK_CAPACITY,
          **dvp, checks=checks, ok=all(checks.values()))
     if not all(checks.values()):
@@ -3597,7 +3641,8 @@ def phase_kexaone_slice(torch, profile: bool = False):
     del params, cache, served, want
     _free_device(torch)
 
-    checks = _served_checks(main, serve_cfg, V, cfg.n_layers, n_win)
+    norms = _norms_a_call(transformer, cfg)
+    checks = _served_checks(main, serve_cfg, V, cfg.n_layers, n_win, norms)
     checks.update(prefill_logit_err=statistics.median(prefill_gaps) <= limit,
                   decode_logit_err=statistics.median(decode_gaps) <= limit)
     emit("kexaone_slice", seconds=time.perf_counter() - started, arch=KEXAONE, dtype=cfg.dtype,
@@ -3609,7 +3654,7 @@ def phase_kexaone_slice(torch, profile: bool = False):
          prefill_logit_err_positions=prefill_gaps, decode_prompt=S,
          decode_logit_err_median=statistics.median(decode_gaps),
          decode_logit_err_positions=decode_gaps,
-         **_served_fields(main, serve_cfg, cfg.n_layers, n_win), checks=checks,
+         **_served_fields(main, serve_cfg, cfg.n_layers, n_win, norms), checks=checks,
          ok=all(checks.values()))
     if not all(checks.values()):
         raise SystemExit(f"kexaone_slice checks failed: {checks}")
@@ -3626,6 +3671,89 @@ def _window_row(attn: dict, launches: dict) -> dict:
             "launches": launches["flash_attention_window"], "max_abs_err": w["max_abs_err"],
             "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
             "bound_by": w["bound_by"], "library_ms": None}
+
+
+# the norm kernel's cases: K-EXAONE's prefill at its longest and shortest
+# prompt (the hidden state, d 6144, as internvl2's; q's 64 and k's 8 heads of
+# 128) and a decode step's hidden state; the first two are timed in bf16
+NORM_CASES = (("hidden_32768", (1, 32768, 6144)), ("q_32768", (1, 32768, 64, 128)),
+              ("k_32768", (1, 32768, 8, 128)), ("hidden_4096", (1, 4096, 6144)),
+              ("decode_hidden", (4, 6144)))
+NORM_TIMED = ("hidden_32768", "q_32768")
+NORM_EPS = 1e-5
+
+
+def phase_norm_kernel(torch) -> dict:
+    """The norm kernel against ``layers.rms_norm`` at NORM_CASES (see 17c);
+    returns the timed cases by (case, residual)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_rms_norm import check_close
+
+    from repro_torch.kernels.rms_norm import ops as nops
+    from repro_torch.models import layers as L
+
+    started, timed = time.perf_counter(), {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, shape in NORM_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rn(*shape_, scale=1.0):
+                return scale * torch.randn(shape_, generator=gen, device="cuda")
+
+            x = (rn(*shape) * torch.exp(3 * torch.rand(shape[:-1] + (1,), generator=gen,
+                                                       device="cuda"))).to(dtype)
+            scale, res = (1 + rn(shape[-1], scale=0.2)).to(dtype), rn(*shape, scale=4).to(dtype)
+            for r in (None, res):
+                def kernel(r=r):
+                    return nops.rms_norm(x, scale, NORM_EPS, r)
+
+                def plain(r=r):
+                    y = L.rms_norm(x, scale, NORM_EPS)
+                    return y if r is None else r + y
+
+                with torch.inference_mode():
+                    n0 = dict(nops.LAUNCHES)
+                    out = kernel()
+                    counted = {k: nops.LAUNCHES[k] - n0[k] for k in n0} == {
+                        "rms_norm": 1, "rms_norm_residual": int(r is not None)}
+                    same = bool(torch.equal(out, kernel()))
+                    torch.cuda.synchronize()
+                    rec = {"case": name, "shape": list(shape), "dtype": str(dtype)[6:],
+                           "residual": r is not None, "launch_counted": counted,
+                           "repeat_bits": same,
+                           "max_abs_err": float((out.float() - plain().float()).abs().max())}
+                    try:
+                        rec.update(check_close(out, x, scale, NORM_EPS, r), close=True)
+                    except AssertionError as e:
+                        rec.update(close=False, why=str(e))
+                    if dtype == torch.bfloat16 and name in NORM_TIMED:
+                        bms, by = roofline(x.numel() * x.element_size() * (2 + (r is not None)),
+                                           0, BF16_FLOPS)
+                        rec.update(ms=kernel_ms(torch, kernel, "rms_norm_kernel"),
+                                   plain_ms=device_ms(torch, plain, 5, 3), bound_ms=bms,
+                                   bound_by=by)
+                        rec["bound_share"] = bms / rec["ms"]
+                        timed[(name, r is not None)] = rec
+                ok = counted and same and rec["close"]
+                emit("norm_kernel", **rec, ok=ok)
+                if not ok:
+                    raise SystemExit(f"the norm kernel disagrees with layers.rms_norm: {rec}")
+                del out
+            del x, scale, res
+    emit("norm_kernel", seconds=time.perf_counter() - started, ok=True)
+    return timed
+
+
+def _norm_row(norm: dict, launches: dict) -> dict:
+    """The kernels line's row of the norm kernel (no TPU kernel: the JAX
+    package's norm is plain code), at K-EXAONE's 32768 x 6144 hidden state."""
+    w = norm[("hidden_32768", False)]
+    return {"name": "rms_norm", "route": "cuda",
+            "source": "src/repro_torch/kernels/rms_norm/csrc/rms_norm.cu",
+            "replaces": "none: the JAX package has no norm kernel",
+            "launches": launches.get("rms_norm", 0),
+            "max_abs_err": max(r["max_abs_err"] for r in norm.values()), "ms": w["ms"],
+            "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "library_ms": None}
 
 
 def _parity_gap(got, want, recurrent_grads: bool) -> tuple[float, float, bool]:
@@ -4188,6 +4316,21 @@ def _event_ms(torch, fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+@contextlib.contextmanager
+def _plain_norms():
+    """The transformer's norms as ``layers.rms_norm`` on plain CUDA tensors
+    too, the route a DTensor step takes (``transformer.norm``): the model's
+    own calls under it give a DTensor step's bits."""
+    from repro_torch.kernels.rms_norm import ops as nops
+    from repro_torch.kernels.rms_norm import ref as nref
+
+    kernel, nops.rms_norm = nops.rms_norm, nref.rms_norm_ref
+    try:
+        yield
+    finally:
+        nops.rms_norm = kernel
+
+
 def phase_plan_serve(torch, mesh) -> dict:
     """yi-9b at full width and depth in bf16 (random weights from seed 0, as
     lm_slice draws them): the plan's ``prefill_step`` (B = 1, 4096 tokens)
@@ -4198,7 +4341,8 @@ def phase_plan_serve(torch, mesh) -> dict:
     parameters, inputs and caches laid out by the plans' placements
     (wrapped without a copy; the prefill at PLAN_DTENSOR_PREFILL), whose
     local shards must take K4 and K5 too (``parallel.local``), with the
-    bits of the model's own calls.  Each step's card time
+    bits of the model's own calls with their norms plain (a DTensor's
+    route: ``_plain_norms``).  Each step's card time
     beside its op_cost count at the same shapes (traced on fake tensors on
     the host), in which each layer's plain attention is replaced by the
     kernel's own work before the roofline shares are taken."""
@@ -4262,7 +4406,10 @@ def phase_plan_serve(torch, mesh) -> dict:
         }
         finite = bool(torch.isfinite(logits_p).all() and torch.isfinite(logits_d).all())
         del logits_p, cache_p, ref_p, ref_cache_p, c_ref
-        ref_p2, ref_cache_p2 = model.prefill(params, tokens2)
+        with _plain_norms():  # the norms a DTensor step runs (transformer.norm)
+            ref_p2, ref_cache_p2 = model.prefill(params, tokens2)
+            c_ref2 = {k: v.clone() for k, v in cache.items()}
+            ref_d2, c_ref2 = model.decode_step(params, tok, c_ref2, kv_len)
     # -- the DTensor route of the same steps: counts set to 0 just before, read just after
     fops.reset_launch_counts()
     dops.reset_launch_counts()
@@ -4277,13 +4424,13 @@ def phase_plan_serve(torch, mesh) -> dict:
         torch.cuda.synchronize()
         dt_launches = {**fops.LAUNCHES, **dops.LAUNCHES}
         dt_out = {"prefill_logits": (_full(dl_p), ref_p2),
-                  "decode_logits": (_full(dl_d), logits_d)}
+                  "decode_logits": (_full(dl_d), ref_d2)}
         dt_out.update({f"prefill_cache_{k}": (_full(dc_p[k]), ref_cache_p2[k]) for k in dc_p})
-        dt_out.update({f"decode_cache_{k}": (_full(dc_d[k]), c_plan[k]) for k in dc_d})
+        dt_out.update({f"decode_cache_{k}": (_full(dc_d[k]), c_ref2[k]) for k in dc_d})
         dt_err = {k: (a.float() - b.float()).abs().max().item() for k, (a, b) in dt_out.items()}
         dt_equal = all(torch.equal(a, b) for a, b in dt_out.values()) and bool(
             torch.equal(_full(dkv), kv_len + 1))
-    del dparams, dl_p, dc_p, dc_d, dl_d, dt_out, ref_p2, ref_cache_p2
+    del dparams, dl_p, dc_p, dc_d, dl_d, dt_out, ref_p2, ref_cache_p2, ref_d2, c_ref2
     with torch.inference_mode(), shd.activation_mesh(mesh):
         prefill_ms = _event_ms(torch, lambda: plan_p.step_fn(params, {"tokens": tokens}), 3)
         decode_ms = _event_ms(torch, lambda: plan_d.step_fn(params, tok, c_plan, kv_len),
@@ -4721,6 +4868,7 @@ def build_all(torch) -> None:
     from repro_torch.kernels.flash_attn import ops as fops
     from repro_torch.kernels.fused_qat import ops as qops
     from repro_torch.kernels.pruned_quant import ops as pq
+    from repro_torch.kernels.rms_norm import ops as nops
 
     def timed(build):
         t0 = time.perf_counter()
@@ -4729,7 +4877,8 @@ def build_all(torch) -> None:
 
     t0 = time.perf_counter()
     builds = {"fused_qat": qops.build, "decode_attn": dops.build, "flash_attn": fops.build,
-              "flash_attn_tc": fops.build_tc, "pruned_quant": pq.build}
+              "flash_attn_tc": fops.build_tc, "pruned_quant": pq.build,
+              "rms_norm": nops.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {name: pool.submit(timed, b) for name, b in builds.items()}
         built = {name: f.result() for name, f in futures.items()}
@@ -5276,10 +5425,12 @@ def main() -> int:
         phase_attn_kernels(torch)
         phase_mm_attn_kernels(torch)
         return 0
-    if "--kexaone" in args:  # K4's window checked and timed, then its served path
+    if "--kexaone" in args:  # K4's window and the norm checked and timed, then its served path
         attn = phase_attn_kernels(torch)
+        norm = phase_norm_kernel(torch)
         launches = phase_kexaone_slice(torch, profile=profile)
-        print(json.dumps({"kernels": [_window_row(attn, launches)]}), flush=True)
+        print(json.dumps({"kernels": [_window_row(attn, launches), _norm_row(norm, launches)]}),
+              flush=True)
         return 0
     if "--encode-order" in args:  # whisper's slice before and after the service phase
         for phase in (phase_audio_slice, phase_audio_slice, phase_service,
@@ -5333,6 +5484,7 @@ def main() -> int:
     if profile:
         phase_profile(torch)
     attn = phase_attn_kernels(torch)
+    norm = phase_norm_kernel(torch)
     phase_lm_parity(torch)
     k1 = phase_frontend_kernel(torch)
     phase_repeat_bits(torch)
@@ -5395,6 +5547,7 @@ def main() -> int:
             "library_ms": main_path["library_ms"],
         })
     rows.append(_window_row(attn, launches))
+    rows.append(_norm_row(norm, launches))
     for kname, t in step_kernels.items():  # no TPU kernel: the plain chain around K2/K3
         rows.append({"name": kname, "route": "cuda",
                      "source": "src/repro_torch/kernels/fused_qat/csrc/fused_qat.cu",

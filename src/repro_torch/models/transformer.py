@@ -25,6 +25,11 @@ names, shapes and layouts (layer parameters stacked on a leading
   ``_choose_attn``'s plain versions: K4 has no backward, and refuses to
   run under autograd.  ``attend`` and ``decode_attend`` hold this routing
   for whisper and zamba2 too.
+* **RMS norms on a CUDA tensor go to a hand-written kernel when serving**
+  (``kernels/rms_norm``, through :func:`norm`), where ``attend`` takes K4:
+  one read and one write a norm, the post-norm residual add in its
+  epilogue.  Training, DTensors and the CPU keep ``layers.rms_norm``, as
+  the reference has it.
 * **``decode_step`` writes the new k/v into the cache in place** at
   ``kv_len``, where the reference rebuilds the whole cache with
   ``jnp.where``: the values are identical (a position past the cache is
@@ -92,6 +97,7 @@ from repro_torch import spans
 from repro_torch.core.frontend import FrontendConfig, PrunedQuantFrontend
 from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
+from repro_torch.kernels.rms_norm import ops as norm_ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import local as local_ops
@@ -115,6 +121,7 @@ __all__ = [
     "cache_specs",
     "attend",
     "decode_attend",
+    "norm",
     "cache_write",
     "StateWriter",
     "normal_init",
@@ -256,27 +263,41 @@ def decode_attend(q, k_cache, v_cache, kv_len):
     return L.decode_attention_plain(q, k_cache, v_cache, kv_len)
 
 
+def norm(x, scale, eps: float, train: bool = False, residual=None, axes=None):
+    """``layers.rms_norm(x, scale, eps)``, and ``residual +`` it where given
+    (a post-norm site): the kernel (``kernels/rms_norm``) on a plain CUDA
+    tensor outside training, as ``attend`` takes K4; otherwise the plain
+    norm, then ``residual + act_constrain(norm, axes)`` (``axes`` None: no
+    constraint)."""
+    if x.is_cuda and not train and not is_dtensor(x):
+        return norm_ops.rms_norm(x, scale, eps, residual)
+    y = L.rms_norm(x, scale, eps)
+    if residual is None:
+        return y
+    return residual + (act_constrain(y, axes) if axes else y)
+
+
 def _attention_block(x, lp, cfg: ModelConfig, rope, plain, train: bool, window=None):
     """x: (B, S, d); lp: one layer's params (leading axis stripped); rope:
     ``layers.rope_angles`` of the positions, or None (no positions);
     ``window``: the layer's sliding window, or None."""
     B, S, d = x.shape
     hd, Hq, Hkv, eps = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps
-    h = x if cfg.post_norm else L.rms_norm(x, lp["ln1"], eps)
+    h = x if cfg.post_norm else norm(x, lp["ln1"], eps, train)
     kv_axes = ("batch", None, "kv_heads", None)
     q = act_reshape(L.dense(h, lp["wq"]), (B, S, Hq, hd), attn_q_axes(Hq))
     k = act_reshape(L.dense(h, lp["wk"]), (B, S, Hkv, hd), kv_axes)
     v = act_reshape(L.dense(h, lp["wv"]), (B, S, Hkv, hd), kv_axes)
     if cfg.qk_norm:
-        q = L.rms_norm(q, lp["q_norm"], eps)
-        k = L.rms_norm(k, lp["k_norm"], eps)
+        q = norm(q, lp["q_norm"], eps, train)
+        k = norm(k, lp["k_norm"], eps, train)
     if rope is not None:
         q = L.rotate(q, *rope)
         k = L.rotate(k, *rope)
     o = attend(q, k, v, True, plain, train, window)
     o = L.dense(o.reshape(B, S, Hq * hd), lp["wo"])
     if cfg.post_norm:
-        o = L.rms_norm(o, lp["ln1"], eps)
+        return norm(o, lp["ln1"], eps, train, residual=x, axes=lm_act_axes(Hq)), (k, v)
     return x + act_constrain(o, lm_act_axes(Hq)), (k, v)
 
 
@@ -436,9 +457,9 @@ def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False, window=Non
     x = act_constrain(x, lm_act_axes(cfg.n_heads))
     x, kv = _attention_block(x, lp, cfg, rope, plain, train, window)
     if cfg.post_norm:
-        x = x + L.rms_norm(_mlp(x, lp, cfg), lp["ln2"], eps)
+        x = norm(_mlp(x, lp, cfg), lp["ln2"], eps, train, residual=x)
     else:
-        x = x + _mlp(L.rms_norm(x, lp["ln2"], eps), lp, cfg)
+        x = x + _mlp(norm(x, lp["ln2"], eps, train), lp, cfg)
     return act_constrain(x, lm_act_axes(cfg.n_heads)), kv
 
 
@@ -521,8 +542,8 @@ def _choose_attn(cfg: ModelConfig, seq_len: int):
     return L.plain_attention
 
 
-def _head(x, rest, cfg: ModelConfig):
-    x = L.rms_norm(x, rest["final_norm"], cfg.rms_norm_eps)
+def _head(x, rest, cfg: ModelConfig, train: bool = False):
+    x = norm(x, rest["final_norm"], cfg.rms_norm_eps, train)
     head = rest["embed"].T if cfg.tie_embeddings else rest["lm_head"]
     return L.dense(x, head)
 
@@ -579,7 +600,7 @@ def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: b
                 states.put(slot[i], k=k, v=v)
     with spans.span(SPAN_HEAD):
         logit_axes = ("batch", lm_act_axes(cfg.n_heads)[1], "vocab")
-        logits = act_constrain(_head(x, rest, cfg), logit_axes)
+        logits = act_constrain(_head(x, rest, cfg, train), logit_axes)
     return logits, states.done() if keep_cache else None
 
 
@@ -647,14 +668,14 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
         lp = _layer_params(stacked, i, cfg)
         win = cfg.windowed(i)
         x = act_constrain(x, ("batch", None))
-        h = x if cfg.post_norm else L.rms_norm(x, lp["ln1"], eps)
+        h = x if cfg.post_norm else norm(x, lp["ln1"], eps)
         # the reference constrains none of these; a DTensor must (act_reshape)
         q = act_reshape(torch.matmul(h, lp["wq"]), (B, Hq, hd), ("batch", "heads", None))
         k = act_reshape(torch.matmul(h, lp["wk"]), (B, Hkv, hd), ("batch", "kv_heads", None))
         v = act_reshape(torch.matmul(h, lp["wv"]), (B, Hkv, hd), ("batch", "kv_heads", None))
         if cfg.qk_norm:
-            q = L.rms_norm(q, lp["q_norm"], eps)
-            k = L.rms_norm(k, lp["k_norm"], eps)
+            q = norm(q, lp["q_norm"], eps)
+            k = norm(k, lp["k_norm"], eps)
         if win or not W:
             q = L.rotate(q[:, None], cos, sin)[:, 0]
             k = L.rotate(k[:, None], cos, sin)[:, 0]
@@ -671,11 +692,11 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
             o = decode_attend(q, kc, vc, attn_len)
         o = torch.matmul(o.reshape(B, Hq * hd), lp["wo"])
         if cfg.post_norm:
-            x = x + L.rms_norm(o, lp["ln1"], eps)
-            x = x + L.rms_norm(_mlp(x, lp, cfg), lp["ln2"], eps)
+            x = norm(o, lp["ln1"], eps, residual=x)
+            x = norm(_mlp(x, lp, cfg), lp["ln2"], eps, residual=x)
         else:
             x = x + o
-            x = x + _mlp(L.rms_norm(x, lp["ln2"], eps), lp, cfg)
+            x = x + _mlp(norm(x, lp["ln2"], eps), lp, cfg)
     return act_constrain(_head(x, rest, cfg), ("batch", "vocab")), states.done()
 
 
