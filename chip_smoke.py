@@ -7,19 +7,9 @@
                                       # a wave of the evaluation service,
                                       # and decode steps and a prefill (or encode) of
                                       # each served model (gzipped traces to OUT)
-    python3 chip_smoke.py --step-ab   # build, phases 3b and 4, then the population
-                                      # step timed as the plain chain and fused, eager
-                                      # and from the CUDA graph, in turns (the fused
-                                      # graph at block lengths S_CANDIDATES), searches
-                                      # with either step, profiles, and a capture made
-                                      # to fail; no result lines
     python3 chip_smoke.py --service   # build, then phase 6d only (the evaluation
                                       # service; with --profile, its wave profiled),
                                       # and stop: no result lines
-    python3 chip_smoke.py --encode-order
-                                      # build, then phase 14 twice, phase 6d, phase 14
-                                      # three times: does the service phase slow a
-                                      # later encode in one process; no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
                                       # and timed), and stop: no result lines
     python3 chip_smoke.py --kexaone   # build, then phases 7, 17c and 17b only (K4's
@@ -38,24 +28,11 @@
     python3 chip_smoke.py --families  # build, then phases 11b and 15-17 only (the MoE,
                                       # RWKV-6 and Zamba2 families; with --profile,
                                       # profiled), and stop: no result lines
-    python3 chip_smoke.py --decode-ab DIR
-                                      # only the decode-step wall time of the three
-                                      # served models, K5 alternately this checkout's
-                                      # and the one under DIR (another checkout's src,
-                                      # e.g. the parent commit's); no result lines
-    python3 chip_smoke.py --kernel-ab DIR
-                                      # build, phases 3 and 9 (K2/K3 and K1 checked
-                                      # and timed), then K1, K2 and K3 timed in turns
-                                      # against DIR's (e.g. parent_tree/src), both
-                                      # built in this process (K2's outputs must be
-                                      # bit-equal), co-design training steps with
-                                      # either K2/K3 and whisper-medium's encode with
-                                      # either K1; no result lines
-    python3 chip_smoke.py --phase-times DIR [DIR ...]
-                                      # the plain run of each checkout in turn
-                                      # (e.g. parent, this, this, parent), each
-                                      # line timed as it arrives: seconds a phase
-                                      # per run; logs in results/phase_times/
+
+A change is timed against its parent by the benchmark (``python3
+cardbench/run.py --workload <cell> ...``, parent and change on one card),
+not here: this script checks, counts and times each kernel alone, with
+its bound from ``cardbench/counts``.
 
 Phases, one JSON line each; any failure ends the run with a nonzero exit:
 
@@ -82,8 +59,7 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 come after phase 6 (``qat_profiler``): the profiler leaves
                 kernel launches slower on the host, and phases 4-6 time a
                 host-bound loop.
-3b. qat_step   (after phase 6d in the default run: it opens profiler
-                sessions; first with --step-ab)
+3b. qat_step   (after phase 6d: it opens profiler sessions)
                 the training step's kernels (``ops.qat_step``: qat_step_prep,
                 K2, qat_step_head, K3, qat_step_update) against the plain chain
                 they replace (``trainer._chain_step``) and its written-out
@@ -372,14 +348,14 @@ import sys
 import time
 from pathlib import Path
 
+# the H100's peaks and the kernels' bounds: the benchmark's own, which its
+# roofline metrics read too
+from cardbench.counts import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S, bound_ms, decode_bound,
+                              flash_bound, k1_bound, roofline)
+
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 (non-tensor) and
-# dense bf16 tensor-core FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_FLOPS = 989e12
 
 # Per-row |acc_card - acc_cpu| bound for the parity phase: the largest
 # per-row gap between the port's CPU path and the JAX package measured at
@@ -496,32 +472,6 @@ def kernel_inputs(torch, B: int, seed: int, C: int = C, F: int = F, n_bits: int 
     thr, ids = make_tables(torch.from_numpy(masks).to(dev), n_bits)
     as_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return as_dev(x), thr, ids, as_dev(w), as_dev(b), as_dev(g)
-
-
-def bound_ms(B: int, backward: bool, need_dx: bool = True) -> tuple[float, str]:
-    """Least time of one call at (P, B): bytes over HBM rate vs fp32 ops over peak.
-    Without dx (training) the backward neither reads w nor writes dx nor forms
-    dx's products."""
-    reads = P * B * C * 4 + 2 * P * C * T * 4
-    bank_ops = P * B * C * (2 * T + 3)  # compare + select per threshold, dequant
-    if not backward or need_dx:
-        reads += P * C * F * 4                       # w
-    if backward:
-        reads += P * B * F * 4                       # g
-        n_products = 2 if need_dx else 1             # dx and dw, or dw alone
-        writes = P * B * C * 4 * (n_products - 1) + P * C * F * 4
-        ops = bank_ops + n_products * (2 * P * B * C * F)
-    else:
-        reads += P * F * 4                           # bias
-        writes = P * B * F * 4
-        ops = bank_ops + 2 * P * B * C * F
-    return roofline(reads + writes, ops, FP32_FLOPS)
-
-
-def roofline(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
-    """The larger of bytes over the HBM rate and ops over ``peak``, in ms, and which."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def device_kernels(torch, fn, n: int = 20, match: str = "") -> dict:
@@ -2013,24 +1963,6 @@ DECODE_EDGES = [
 ]
 
 
-def flash_bound(torch, B, Sq, Sk, Hq, Hkv, d, causal, dtype) -> tuple[float, str]:
-    """Least time of one K4 call: q, k, v read and out written once vs the
-    products' FLOPs (causal: only the pairs with k <= q) at the type's peak."""
-    nbytes = (2 * B * Sq * Hq * d + 2 * B * Sk * Hkv * d) * dtype.itemsize
-    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    return roofline(nbytes, 4 * B * Hq * d * pairs, peak)
-
-
-def decode_bound(torch, B, Hq, Hkv, S, d, kv_len, dtype) -> tuple[float, str]:
-    """Least time of one K5 call: the K/V rows up to kv_len, q, out and kv_len
-    moved once vs the products' FLOPs over those rows at the type's peak."""
-    rows = int(kv_len.clamp(max=S).sum())
-    nbytes = (2 * B * Hq * d + 2 * rows * Hkv * d) * dtype.itemsize + 4 * B
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    return roofline(nbytes, 4 * Hq * d * rows, peak)
-
-
 def _close(torch, out, ref, dtype_name: str) -> tuple[float, bool]:
     tol = ATTN_TOL[dtype_name]
     err = float((out.float() - ref.float()).abs().max())
@@ -2070,7 +2002,7 @@ def phase_attn_kernels(torch):
                    "shape": list(shape), "max_abs_err": err, "tol": ATTN_TOL[dname]}
             if shape == YI_PREFILL:
                 qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                bms, by = flash_bound(torch, *shape, dtype)
+                bms, by = flash_bound(*shape, dtype.itemsize)
                 rec.update(
                     ms=device_ms(torch, lambda: fops.flash_attention(q, k, v, causal), 3, 3),
                     plain_ms=device_ms(
@@ -2078,7 +2010,7 @@ def phase_attn_kernels(torch):
                     library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal, enable_gqa=True), 10, 3),
                     bound_ms=bms, bound_by=by,
-                    bound_ms_fp32_cuda_cores=flash_bound(torch, *shape, torch.float32)[0]
+                    bound_ms_fp32_cuda_cores=flash_bound(*shape, torch.float32.itemsize)[0]
                     if dtype == torch.bfloat16 else None)
                 res["flash_attention"][dname] = rec
             errs["flash_attention"].append(err)
@@ -2131,7 +2063,7 @@ def phase_attn_kernels(torch):
             if shape == YI_DECODE:
                 mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
                 q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-                bms, by = decode_bound(torch, *shape, kv_len, dtype)
+                bms, by = decode_bound(*shape, int(kv_len.clamp(max=S).sum()), dtype.itemsize)
                 rec.update(
                     ms=kernel_ms(torch, lambda: dops.decode_attention(q, k, v, kv_len),
                                  K5_KERNEL),
@@ -2466,13 +2398,6 @@ def k1_inputs(torch, shape, mask_kind: str, seed: int, n_bits: int = 4, offset: 
     return xt, torch.from_numpy(mask).to("cuda")
 
 
-def k1_bound(B: int, C: int, T: int = 15) -> tuple[float, str]:
-    """Least time of one K1 call: x read and the int32 levels written once, the
-    two (C, T) tables read once, vs a compare and a max per comparator at the
-    fp32 peak."""
-    return roofline(8 * B * C + 8 * C * T, 2 * B * C * T, FP32_FLOPS)
-
-
 def phase_frontend_kernel(torch):
     """K1 against its plain version, tolerance 0: the served shapes with three
     masks, ragged shapes, every bank width (N in K1_BITS), an unaligned x; one
@@ -2581,7 +2506,7 @@ def phase_mm_attn_kernels(torch):
         err, ok = _close(torch, out, want, "bfloat16")
         ok = ok and tc
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        bms, by = flash_bound(torch, *shape, dtype)
+        bms, by = flash_bound(*shape, dtype.itemsize)
         n = 3 if Sq * Sk > 10**6 else 20
         rec = {"kernel": "flash_attention", "variant": "tc" if tc else "not tc",
                "what": what, "shape": list(shape),
@@ -2609,7 +2534,8 @@ def phase_mm_attn_kernels(torch):
         ok = ok and same_bits
         mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
         q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        bms, by = decode_bound(torch, B, Hq, Hkv, S, d, kv_len, dtype)
+        bms, by = decode_bound(B, Hq, Hkv, S, d, int(kv_len.clamp(max=S).sum()),
+                               dtype.itemsize)
         rec = {"kernel": "decode_attention", "what": what, "shape": [B, Hq, Hkv, S, d],
                "kv_len": list(lens), "n_split": dops.split_plan(B, Hkv, S)[0],
                "q_scale": MM_Q_SCALE, "ref_rms": rms(want),
@@ -3469,7 +3395,7 @@ def _zamba_kernels(torch) -> dict:
     err, ok = _close(torch, fops.flash_attention(q, k, v, causal),
                      fref.flash_attention_ref(q, k, v, causal), "bfloat16")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    bms, by = flash_bound(torch, *ZAMBA_PREFILL, bf)
+    bms, by = flash_bound(*ZAMBA_PREFILL, bf.itemsize)
     res = {"flash_attention": dict(
         shape=list(ZAMBA_PREFILL), variant=fops.variant(bf, d), max_abs_err=err,
         tol=ATTN_TOL["bfloat16"], ok=ok,
@@ -3486,7 +3412,7 @@ def _zamba_kernels(torch) -> dict:
                      dref.decode_attention_ref(q, k, v, kv_len), "bfloat16")
     mask = (torch.arange(S, device="cuda")[None, :] < kv_len[:, None])[:, None, None]
     q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-    bms, by = decode_bound(torch, *ZAMBA_DECODE, kv_len, bf)
+    bms, by = decode_bound(*ZAMBA_DECODE, int(kv_len.clamp(max=S).sum()), bf.itemsize)
     res["decode_attention"] = dict(
         shape=list(ZAMBA_DECODE), kv_len=kv_len.tolist(),
         n_split=dops.split_plan(B, Hkv, S)[0], max_abs_err=err, tol=ATTN_TOL["bfloat16"], ok=ok,
@@ -4154,12 +4080,27 @@ def phase_train_lm(torch, int8_ef: bool):
         raise SystemExit(f"train_lm checks failed: {checks}")
 
 
+@contextlib.contextmanager
+def _expandable_segments(torch):
+    """PyTorch's allocator growing its segments in place while the block
+    runs.  train_slice's int8_ef steps peak at ~70 GB of the card's 85, and
+    the state each step writes anew lies between freed activations: in
+    fixed-size segments 12.7 GiB of them stayed unusable (out of memory on
+    an NVIDIA H100 80GB HBM3 under torch 2.11)."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
 def phase_train(torch, profile: bool = False) -> float:
     """Phases 18-22: LM training; returns train_slice's median step time (ms)."""
     phase_train_guard(torch)
     phase_optim(torch)
     phase_train_parity(torch)
-    full_width_ef, step_ms = phase_train_slice(torch, profile=profile)
+    with _expandable_segments(torch):
+        full_width_ef, step_ms = phase_train_slice(torch, profile=profile)
     phase_train_lm(torch, int8_ef=not full_width_ef)
     return step_ms
 
@@ -4902,359 +4843,6 @@ def build_all(torch) -> None:
                 raise SystemExit(f"{n}'s register-path kernels spill or are missing: {spills}")
 
 
-def _load_ops(path: Path, name: str):
-    """Import the ops module of another checkout's kernel beside this one's
-    (once: a second call returns the module the first made)."""
-    import importlib.util
-
-    if name in sys.modules:
-        return sys.modules[name]
-
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod  # dataclasses look their module up while they are made
-    spec.loader.exec_module(mod)
-    return mod
-
-
-DECODE_AB_ROUNDS, DECODE_BLOCK_STEPS = 4, 16  # rounds of 4 blocks (A B B A) of 16 steps
-# (arch, cache length, positions in at the first step): the serving slices' decode
-DECODE_STEP_CASES = (("yi-9b", 4096, 64), ("internvl2-26b", 512, 320),
-                     ("whisper-medium", 1500, 1))
-
-
-def phase_decode_ab(torch, other_src: Path):
-    """Wall time of a decode step at B=4 of each served model at full width
-    and depth, with K5 alternately this checkout's and the one under
-    ``other_src`` (its ``repro_torch/kernels/decode_attn``, loaded beside
-    this one; everything else of the step is this checkout's).  Blocks of
-    DECODE_BLOCK_STEPS steps run in the order other, this, this, other, each
-    timed on the host clock between two synchronisations, in one process on
-    one card: the steps are host-bound, so separate processes (or machines)
-    differ by more than the kernels do.  Weights, caches and tokens are
-    drawn from seeds.  Then 4 steps of each version under the profiler give
-    the device busy time a step and K5's device time a call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import registry
-    from repro_torch.kernels.decode_attn import ops as dops
-    from repro_torch.models import build_model, init_cache, transformer
-
-    other = _load_ops(other_src / "repro_torch" / "kernels" / "decode_attn" / "ops.py",
-                      "other_decode_attn_ops")
-    versions = {"this": dops, "other": other}
-    order = ["other", "this", "this", "other"] * DECODE_AB_ROUNDS
-    try:
-        for arch, S, kv0 in DECODE_STEP_CASES:
-            _free_device(torch)
-            cfg = registry.get(arch)
-            model = build_model(cfg)
-            params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
-            gen = torch.Generator(device="cuda").manual_seed(1)
-            with torch.inference_mode():
-                cache = init_cache(model, 4, S, "cuda")
-                for n in ("cross_k", "cross_v"):  # whisper's encoder states, drawn
-                    if n in cache:
-                        cache[n].normal_(generator=gen)
-                tok = torch.randint(0, cfg.vocab_size, (4,), generator=gen, device="cuda",
-                                    dtype=torch.int32)
-                kv_len = torch.full((4,), kv0, dtype=torch.int32, device="cuda")
-                logits = {}
-                for name, ops in versions.items():  # each K5 builds at its first call
-                    transformer.decode_ops = ops
-                    for i in range(4):
-                        logits[name], _ = model.decode_step(params, tok, cache, kv_len + i)
-                    ops.reset_launch_counts()
-                block_ms = {name: [] for name in versions}
-                for name in order:
-                    transformer.decode_ops = versions[name]
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    for i in range(DECODE_BLOCK_STEPS):
-                        model.decode_step(params, tok, cache, kv_len + i)
-                    torch.cuda.synchronize()
-                    block_ms[name].append((time.perf_counter() - t0) / DECODE_BLOCK_STEPS * 1e3)
-            n_steps = 2 * DECODE_AB_ROUNDS * DECODE_BLOCK_STEPS
-            calls = {n: ops.LAUNCHES["decode_attention"] / n_steps for n, ops in versions.items()}
-            device = {}
-            for name, ops in versions.items():
-                transformer.decode_ops = ops
-                with torch.inference_mode(), profile(
-                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for i in range(4):
-                        model.decode_step(params, tok, cache, kv_len + i)
-                    torch.cuda.synchronize()
-                kt = _kernel_table(torch, prof)
-                k5 = [v for n, v in kt.items() if "decode_attn" in n]
-                device[name] = {
-                    "busy_ms_per_step": sum(v[1] for v in kt.values()) / 4e3,
-                    "k5_us_per_call": sum(v[1] for v in k5) / (4 * calls[name]),
-                    "k5_kernels_per_call": sum(v[0] for v in k5) / (4 * calls[name])}
-            gap = float((logits["this"].float() - logits["other"].float()).abs().max())
-            checks = {"logits_finite": all(bool(torch.isfinite(x).all()) for x in logits.values()),
-                      "k5_on_every_layer": set(calls.values()) == {
-                          float(cfg.n_layers * (2 if arch == "whisper-medium" else 1))}}
-            emit("decode_ab", arch=arch, other_src=str(other_src), batch=4, cache_len=S,
-                 kv_len_first=kv0, steps_per_block=DECODE_BLOCK_STEPS, order=order,
-                 block_ms=block_ms,
-                 median_ms={n: statistics.median(b) for n, b in block_ms.items()},
-                 k5_calls_per_step=calls, device=device,
-                 logits_this_vs_other_max_abs=gap, checks=checks,
-                 ok=all(checks.values()))
-            del params, cache, logits
-            if not all(checks.values()):
-                raise SystemExit(f"decode_ab {arch}: {checks}")
-    finally:
-        transformer.decode_ops = dops
-
-
-AB_ROUNDS = 4  # rounds of 4 blocks (other, this, this, other) in --kernel-ab
-
-
-def phase_kernel_ab(torch, other_src: Path):
-    """K1, K2 and K3 of this checkout against those of ``other_src`` (another
-    checkout's src, e.g. the parent commit's), both built from their own
-    sources and loaded in one process on one card.  Each case runs in blocks,
-    other, this, this, other, AB_ROUNDS times: a block is the CUDA-event time
-    of a call (device_ms, the stream kept busy) and, from the profiler, the
-    device kernels a call and their summed time.  Cases: K1 at internvl2-26b's
-    patch and whisper-medium's frame shapes (full banks; the event time holds
-    the wrapper's table build, the profiler's the kernel alone), K3 at the
-    training shape with dx (what earlier PRs timed) and without (what training
-    calls), K2 at the training (B = 128) and evaluation (B = 638) shapes.
-    Both versions are first held against the plain versions; K2's two
-    versions must also give the same bits."""
-    from repro_torch.kernels.fused_qat import ops as qops
-    from repro_torch.kernels.fused_qat import ref as qref
-    from repro_torch.kernels.pruned_quant import ops as pq
-    from repro_torch.kernels.pruned_quant import ref as pq_ref
-
-    kdir = other_src / "repro_torch" / "kernels"
-    versions = {
-        "this": (pq, qops),
-        "other": (_load_ops(kdir / "pruned_quant" / "ops.py", "other_pruned_quant_ops"),
-                  _load_ops(kdir / "fused_qat" / "ops.py", "other_fused_qat_ops")),
-    }
-    cases = {}
-    for label, shape in (("k1_internvl2", VLM_PATCHES), ("k1_whisper", AUDIO_FRAMES)):
-        x, mask = k1_inputs(torch, shape, "full", seed=7)
-        thr, ids = pq_ref.make_tables(mask, N_BITS)
-        want = pq_ref.pruned_quantize_ref(x.reshape(-1, shape[-1]), thr, ids).reshape(shape)
-        cases[label] = ({n: (lambda m=m[0], x=x, mask=mask: m.pruned_quantize(x, mask))
-                         for n, m in versions.items()}, "pruned_quant", want, None)
-    x, thr, ids, w, _, g = kernel_inputs(torch, 128, seed=128)
-    _, dw_ref = qref.fused_backward_tables(x, thr, ids, w, g, SCALE)
-    h = qref.dequant_ste_tables(x, thr, ids, SCALE)
-    dw_tol = 128 * 2.0 ** -23 * torch.matmul(h.abs().transpose(1, 2), g.abs())
-    for label, need_dx in (("k3_training_no_dx", False), ("k3_with_dx", True)):
-        cases[label] = ({n: (lambda m=m[1], nd=need_dx: m.fused_backward(
-            x, thr, ids, w, g, SCALE, need_dx=nd)) for n, m in versions.items()},
-            "", dw_ref, dw_tol)
-    for B in (128, 638):
-        x2, thr2, ids2, w2, b2, _ = kernel_inputs(torch, B, seed=B)
-        cases[f"k2_B{B}"] = ({n: (lambda m=m[1], a=(x2, thr2, ids2, w2, b2): m.fused_forward(
-            *a, SCALE)) for n, m in versions.items()}, "",
-            qref.fused_forward_tables(x2, thr2, ids2, w2, b2, SCALE), K2_TOL)
-    order = ["other", "this", "this", "other"] * AB_ROUNDS
-    for label, (fns, match, want, tol) in cases.items():
-        checks, got = {}, {}
-        for n, fn in fns.items():  # builds each version's library at its first call
-            got[n] = fn()
-            torch.cuda.synchronize()
-            if tol is None:
-                checks[f"{n}_equals_plain"] = bool(torch.equal(got[n], want))
-            elif isinstance(tol, float):
-                checks[f"{n}_within_tol_of_plain"] = bool(
-                    torch.allclose(got[n], want, rtol=tol, atol=tol))
-            else:
-                checks[f"{n}_within_bound"] = bool(((got[n][1] - want).abs() <= tol).all())
-        if isinstance(tol, float):  # K2's redesign keeps the first design's bits
-            checks["this_equals_other"] = bool(torch.equal(got["this"], got["other"]))
-        blocks = {n: {"event_ms": [], "kernel_us": [], "kernels_per_call": []} for n in fns}
-        for n in order:
-            blocks[n]["event_ms"].append(device_ms(torch, fns[n], n=50, repeats=3))
-            prof = device_kernels(torch, fns[n], n=20, match=match)
-            blocks[n]["kernel_us"].append(prof["kernel_us_per_call"])
-            blocks[n]["kernels_per_call"].append(prof["kernels_per_call"])
-        med = {n: {k: statistics.median(v) for k, v in b.items()} for n, b in blocks.items()}
-        emit("kernel_ab", case=label, other_src=str(other_src), order=order, blocks=blocks,
-             median=med,
-             other_over_this_kernel=med["other"]["kernel_us"] / med["this"]["kernel_us"],
-             other_over_this_event=med["other"]["event_ms"] / med["this"]["event_ms"],
-             checks=checks, ok=all(checks.values()))
-        if not all(checks.values()):
-            raise SystemExit(f"kernel_ab {label}: {checks}")
-
-
-STEP_AB_STEPS = 200  # training steps a block in --kernel-ab's co-design case
-
-
-def phase_step_ab(torch, other_src: Path):
-    """Wall time of a co-design training step (24 cardio rows, the slice's
-    shapes: B = 128, C = 21, F = 5), with the fused QAT layer (K2 forward,
-    K3 backward) alternately this checkout's and the one under
-    ``other_src``; everything else of the step is this checkout's.  A block
-    is one row program of STEP_AB_STEPS steps and its 638-sample evaluation,
-    timed on the host clock between two synchronisations and divided by the
-    steps; blocks run other, this, this, other, AB_ROUNDS times, in one
-    process on one card (the step is host-bound: two processes differ by
-    more than the kernels do).  Both versions train to the same parameters
-    and accuracies, bit for bit, where their K2 and K3 give the same bits.
-    The row program is the eager loop (``graph=False``), as before the
-    population step had its CUDA graph, so its step times stay comparable
-    with the earlier measurements of this case.  Each version's K2 and K3 are
-    swapped in where this checkout calls them: the fused step
-    (``ops.qat_step``) and the test forward (``FusedQAT``)."""
-    from repro_torch.core import qat, trainer
-    from repro_torch.kernels.fused_qat import ops as qops
-
-    other = _load_ops(other_src / "repro_torch" / "kernels" / "fused_qat" / "ops.py",
-                      "other_fused_qat_ops")
-    versions = {"this": qops, "other": other}
-    (X_tr, y_tr, X_te, y_te), sizes = _cardio()
-    mcfg, ecfg = qat.MLPConfig(sizes), trainer.EvalConfig(max_steps=STEP_AB_STEPS)
-    run = trainer.make_row_program(X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
-                                   graph=False)
-    rows, seeds = _cardio_rows(P, seed=5)
-    params0, idx = trainer.draw_rows(seeds, ecfg, mcfg, X_tr.shape[0])
-    order = ["other", "this", "this", "other"] * AB_ROUNDS
-    k2_k3 = ("fused_qat_forward", "fused_qat_backward")
-    mine = (qops.fused_forward, qops.fused_backward)
-
-    def use(ops):
-        qops.fused_forward, qops.fused_backward = ops.fused_forward, ops.fused_backward
-
-    try:
-        trained = {}
-        for name, ops in versions.items():  # a first run of each, then the counts
-            use(ops)
-            trained[name] = run(*rows, params0, idx)
-            ops.reset_launch_counts()
-        step_ms = {name: [] for name in versions}
-        for name in order:
-            use(versions[name])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run(*rows, params0, idx)
-            torch.cuda.synchronize()
-            step_ms[name].append((time.perf_counter() - t0) / STEP_AB_STEPS * 1e3)
-    finally:
-        qops.fused_forward, qops.fused_backward = mine
-    blocks = 2 * AB_ROUNDS
-    launches = {n: {k: ops.LAUNCHES[k] / blocks for k in k2_k3}
-                for n, ops in versions.items()}
-    (acc, params), (acc_o, params_o) = trained["this"], trained["other"]
-    med = {n: statistics.median(b) for n, b in step_ms.items()}
-    checks = {"same_accuracies": bool(torch.equal(acc, acc_o)),
-              "same_parameters": all(torch.equal(params[k], params_o[k]) for k in params),
-              "kernels_every_step": all(
-                  v == {"fused_qat_forward": STEP_AB_STEPS + 1,
-                        "fused_qat_backward": STEP_AB_STEPS} for v in launches.values())}
-    emit("kernel_ab", case="codesign_step", other_src=str(other_src), rows=P,
-         steps_per_block=STEP_AB_STEPS, order=order, step_ms=step_ms, median_step_ms=med,
-         other_minus_this_ms=med["other"] - med["this"], launches_per_block=launches,
-         checks=checks, ok=all(checks.values()))
-    if not all(checks.values()):
-        raise SystemExit(f"kernel_ab codesign_step: {checks}")
-
-
-S_CANDIDATES = (10, 25, 50, 100, 200)  # block lengths --step-ab times against each other
-GRAPH_AB_ROUNDS = 3  # rounds of (every program, then reversed) in --step-ab
-GEN_AB_ROUNDS = 2  # rounds of (chain, fused, fused, chain) co-design runs in --step-ab
-
-
-def phase_graph_ab(torch):
-    """The fused step against the plain chain it replaces, and the captured
-    graph against the eager loop, in turns, in one process.
-
-    Steps: 24 cardio rows (the slice's shapes), one 600-step call a block:
-    the plain chain (``trainer._chain_step``) eager and graphed, the fused step
-    eager and graphed at each block length of S_CANDIDATES, in that order
-    and reversed, GRAPH_AB_ROUNDS times; a block's wall time (host clock
-    between two synchronisations) over its steps.  Every version trains to
-    the same parameters and accuracies as the plain chain's eager loop, bit
-    for bit.  The first call of each program captures its graphs: that time
-    is kept apart.  Searches: ``run_codesign`` on cardio (pop 24, 600 steps,
-    2 generations), graphed, its steps alternately the plain chain and the
-    fused step (chain, fused, fused, chain, GEN_AB_ROUNDS times), seconds a
-    generation from its history; the two give the same fronts.  Then the
-    profiler (``phase_profile``): device busy time and idle share."""
-    import contextlib
-    import dataclasses
-
-    import numpy as np
-
-    from repro_torch.configs.printed_mlp import codesign_config
-    from repro_torch.core import codesign, qat, trainer
-
-    (X_tr, y_tr, X_te, y_te), sizes = _cardio()
-    mcfg = qat.MLPConfig(sizes)
-    rows, seeds = _cardio_rows(P, seed=5)
-    names = ["chain_eager", "chain"] + ["eager"] + [f"S{S}" for S in S_CANDIDATES]
-    programs, first_call_s = {}, {}
-    for name in names:
-        S = int(name[1:]) if name[0] == "S" else trainer.EvalConfig().block_steps
-        ecfg = trainer.EvalConfig(max_steps=600, block_steps=S)
-        programs[name] = trainer.make_row_program(
-            X_tr, y_tr, X_te, y_te, mcfg, ecfg, device="cuda",
-            graph=False if name.endswith("eager") else None)
-    params0, idx = trainer.draw_rows(seeds, trainer.EvalConfig(max_steps=600), mcfg,
-                                     X_tr.shape[0])
-
-    def call(name):
-        with _plain_chain(mcfg) if name.startswith("chain") else contextlib.nullcontext():
-            return programs[name](*rows, params0, idx)
-
-    trained = {}
-    for name in names:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trained[name] = call(name)
-        torch.cuda.synchronize()
-        first_call_s[name] = time.perf_counter() - t0
-    order = (names + names[::-1]) * GRAPH_AB_ROUNDS
-    step_ms = {n: [] for n in programs}
-    for name in order:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call(name)
-        torch.cuda.synchronize()
-        step_ms[name].append((time.perf_counter() - t0) / 600 * 1e3)
-    med = {n: statistics.median(v) for n, v in step_ms.items()}
-    checks = {f"{n}_equals_chain_eager": _same(torch, trained[n], trained["chain_eager"])
-              for n in names[1:]}
-    emit("graph_ab", case="steps", rows=P, steps_per_block=600, order=order,
-         step_ms=step_ms, median_step_ms=med,
-         chain_over={n: med["chain"] / med[n] for n in names},
-         first_call_s=first_call_s, stats={n: dict(r.stats) for n, r in programs.items()},
-         checks=checks, ok=all(checks.values()))
-    if not all(checks.values()):
-        raise SystemExit(f"graph_ab steps: {checks}")
-
-    cfg = dataclasses.replace(codesign_config("cardio", full=True), n_generations=2,
-                              device="cuda")
-    gen_s, search_s, fronts = {"chain": [], "fused": []}, {"chain": [], "fused": []}, {}
-    for name in ["chain", "fused", "fused", "chain"] * GEN_AB_ROUNDS:
-        with _plain_chain(mcfg) if name == "chain" else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            res = codesign.run_codesign(cfg)
-            search_s[name].append(time.perf_counter() - t0)
-        gen_s[name].append([h["gen_s"] for h in res.history])
-        fronts[name] = (res.front_acc, res.front_masks, res.n_evaluations)
-    same = all(np.array_equal(a, b) for a, b in zip(fronts["chain"], fronts["fused"]))
-    emit("graph_ab", case="generations", dataset="cardio", pop_size=cfg.pop_size,
-         max_steps=cfg.max_steps, n_generations=cfg.n_generations, gen_s=gen_s,
-         search_s=search_s,
-         median_gen_s={n: statistics.median(x for g in v for x in g) for n, v in gen_s.items()},
-         median_search_s={n: statistics.median(v) for n, v in search_s.items()},
-         checks={"same_fronts": same}, ok=same)
-    if not same:
-        raise SystemExit("graph_ab generations: the plain chain's and the fused step's "
-                         "searches differ")
-
-    phase_profile(torch)
-
-
 def phase_capture_fails(torch):
     """A capture that fails raises, and the trainer does not fall back to the
     eager loop: a step that reads a value back to the host while it is being
@@ -5297,107 +4885,16 @@ def phase_capture_fails(torch):
         raise SystemExit(f"capture_fails: {checks}")
 
 
-ENCODE_AB_CALLS = 4  # encodes a block in --kernel-ab's whisper case
-
-
-def phase_encode_ab(torch, other_src: Path):
-    """Wall time of whisper-medium's ``encode`` (B=4 x 1500 frames, full width
-    and depth, bf16), with K1 alternately this checkout's and the one under
-    ``other_src``; everything else of the call is this checkout's.  Blocks of
-    ENCODE_AB_CALLS calls run other, this, this, other, AB_ROUNDS times, each
-    timed on the host clock between two synchronisations, in one process on
-    one card.  K1 is bit-equal to its plain version in both, so both give the
-    same encoder states, bit for bit."""
-    from repro_torch.configs import registry
-    from repro_torch.core import frontend
-    from repro_torch.kernels.pruned_quant import ops as pq
-    from repro_torch.models import build_model, whisper
-
-    _free_device(torch)
-    versions = {"this": pq, "other": _load_ops(
-        other_src / "repro_torch" / "kernels" / "pruned_quant" / "ops.py",
-        "other_pruned_quant_ops")}
-    cfg = registry.get("whisper-medium")
-    params = build_model(cfg).init_params(torch.Generator(device="cuda").manual_seed(0))
-    frames = torch.rand(AUDIO_FRAMES, generator=torch.Generator(device="cuda").manual_seed(1),
-                        device="cuda")
-    order = ["other", "this", "this", "other"] * AB_ROUNDS
-    try:
-        with torch.inference_mode():
-            enc = {}
-            for name, ops in versions.items():  # each K1 builds at its first call
-                frontend.pq_ops = ops
-                enc[name] = whisper.encode(params, frames, cfg)
-                ops.reset_launch_counts()
-            block_ms = {name: [] for name in versions}
-            for name in order:
-                frontend.pq_ops = versions[name]
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(ENCODE_AB_CALLS):
-                    whisper.encode(params, frames, cfg)
-                torch.cuda.synchronize()
-                block_ms[name].append((time.perf_counter() - t0) / ENCODE_AB_CALLS * 1e3)
-    finally:
-        frontend.pq_ops = pq
-    calls = {n: ops.LAUNCHES["pruned_quantize"] / (2 * AB_ROUNDS * ENCODE_AB_CALLS)
-             for n, ops in versions.items()}
-    med = {n: statistics.median(b) for n, b in block_ms.items()}
-    checks = {"same_encoder_states": bool(torch.equal(enc["this"], enc["other"])),
-              "encoder_states_finite": bool(torch.isfinite(enc["this"]).all()),
-              "k1_once_a_call": calls == {"this": 1.0, "other": 1.0}}
-    emit("kernel_ab", case="whisper_encode", other_src=str(other_src), batch=AUDIO_FRAMES[0],
-         frames=AUDIO_FRAMES[1], calls_per_block=ENCODE_AB_CALLS, order=order,
-         block_ms=block_ms, median_ms=med, k1_calls_per_encode=calls,
-         other_minus_this_ms=med["other"] - med["this"], checks=checks,
-         ok=all(checks.values()))
-    del params, enc
-    if not all(checks.values()):
-        raise SystemExit(f"kernel_ab whisper_encode: {checks}")
-
-
-PHASE_TIMES_LIMIT_S = 1500  # each run of --phase-times
-
-
-def phase_times(dirs: list[Path]) -> None:
-    """``--phase-times DIR ...``: the plain run (``python3 chip_smoke.py``)
-    of each checkout in turn, in the order given, and each run's seconds a
-    phase: from the previous phase's last line to this phase's last line,
-    as the lines reach this process (a phase prints when it ends).  Each
-    run's output is kept in ``results/phase_times/<i>.log``."""
-    out_dir = ROOT / "results" / "phase_times"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    for i, d in enumerate(dirs):
-        t0 = time.perf_counter()
-        stamps, last = [], None
-        with open(out_dir / f"{i}.log", "w") as log:
-            proc = subprocess.Popen([sys.executable, "chip_smoke.py"], cwd=str(d),
-                                    stdout=subprocess.PIPE, text=True)
-            try:
-                for line in proc.stdout:
-                    log.write(line)
-                    t = time.perf_counter() - t0
-                    try:
-                        name = json.loads(line).get("phase")
-                    except (ValueError, AttributeError):
-                        name = None
-                    if name is None:
-                        continue
-                    if stamps and stamps[-1][0] == name:
-                        stamps[-1][2] = t
-                    else:
-                        stamps.append([name, last if last is not None else 0.0, t])
-                    last = t
-                rc = proc.wait(timeout=PHASE_TIMES_LIMIT_S)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        emit("phase_times", run=i, dir=str(d), rc=rc, wall_s=time.perf_counter() - t0,
-             phases=[[n, t1 - t0_] for n, t0_, t1 in stamps])
+FLAGS = ("--profile", "--attn", "--kexaone", "--families", "--train", "--mesh", "--examples",
+         "--service")
 
 
 def main() -> int:
+    unknown = [a for a in sys.argv[1:] if a not in FLAGS]
+    if unknown:
+        print(f"chip_smoke: unknown arguments {unknown}; known: {' '.join(FLAGS)}",
+              file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -5413,12 +4910,6 @@ def main() -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    if "--phase-times" in args:  # whole plain runs of checkouts, timed a phase at a time
-        phase_times([Path(a).resolve() for a in args[args.index("--phase-times") + 1:]])
-        return 0
-    if "--decode-ab" in args:
-        phase_decode_ab(torch, Path(args[args.index("--decode-ab") + 1]).resolve())
-        return 0
     profile = "--profile" in args
     build_all(torch)
     if "--attn" in args:  # a kernel change's first call: build, check, time, stop
@@ -5431,11 +4922,6 @@ def main() -> int:
         launches = phase_kexaone_slice(torch, profile=profile)
         print(json.dumps({"kernels": [_window_row(attn, launches), _norm_row(norm, launches)]}),
               flush=True)
-        return 0
-    if "--encode-order" in args:  # whisper's slice before and after the service phase
-        for phase in (phase_audio_slice, phase_audio_slice, phase_service,
-                      phase_audio_slice, phase_audio_slice, phase_audio_slice):
-            phase(torch)
         return 0
     if "--families" in args:  # the MoE, RWKV-6 and Zamba2 phases alone: build, run, stop
         phase_family_parity(torch)
@@ -5453,21 +4939,6 @@ def main() -> int:
         return 0
     if "--service" in args:  # the evaluation service alone: build, run phase 6d, stop
         phase_service(torch, profile=profile)
-        return 0
-    if "--step-ab" in args:  # the fused step and the graph checked, then timed
-        phase_qat_step(torch)
-        phase_placement(torch)
-        phase_graph_ab(torch)
-        phase_capture_fails(torch)
-        return 0
-    if "--kernel-ab" in args:  # K1/K3 checked, then timed against another checkout's
-        phase_kernels(torch)
-        phase_qat_profiler(torch)
-        phase_frontend_kernel(torch)
-        other_src = Path(args[args.index("--kernel-ab") + 1]).resolve()
-        phase_kernel_ab(torch, other_src)
-        phase_step_ab(torch, other_src)
-        phase_encode_ab(torch, other_src)
         return 0
     kern = phase_kernels(torch)
     phase_placement(torch)

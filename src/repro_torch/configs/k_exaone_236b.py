@@ -10,9 +10,9 @@ the 8 experts of rank 0 of a 16-card expert-parallel pool (EP16); the
 multi-token-prediction layer is left out.
 """
 
-from repro_torch.models.config import PortConfig
+from repro_torch.models.config import ModelConfig
 
-CONFIG = PortConfig(
+CONFIG = ModelConfig(
     name="k-exaone-236b-a23b",
     family="moe",
     n_layers=48,

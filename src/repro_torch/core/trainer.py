@@ -51,7 +51,8 @@ records the draws, the staging of host tensors and copies, each new graph's
 warm-up and capture, and the launches.
 
 ``graph=None`` means a graph on the card and the plain loop on the CPU;
-``graph=False`` on the card is an explicit eager run (for A/B timing);
+``graph=False`` on the card is an explicit eager run (what ``chip_smoke.py``'s
+placement phase and ``cardbench/tools/divergence.py`` step through);
 ``graph=True`` on the CPU raises.  A failed capture or replay raises and
 never falls back to the eager loop.  The fused QAT layer's launch counters
 (``kernels.fused_qat.ops.LAUNCHES``) count what runs: a capture adds
@@ -112,8 +113,7 @@ class EvalConfig:
     pad_granule: int = 4          # population bucket size
     # S: training steps a block (and a CUDA graph) holds.  On an H100 every
     # S from 10 to 200 gave the same step time within 2-10% and a capture
-    # costs about 3 + S eager steps, so the smallest (PERF.md;
-    # ``chip_smoke.py --step-ab`` times the candidates)
+    # costs about 3 + S eager steps, so the smallest (PERF.md)
     block_steps: int = 10
     # generalized-genome gene groups (core.chromosome.AXES).  Beyond "adc",
     # each enabled axis adds one per-row array to every call, in canonical

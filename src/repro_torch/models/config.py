@@ -1,6 +1,7 @@
 """Unified model configuration covering every assigned architecture family.
 
-A copy of the JAX package's ``models/config.py`` (plain data, no JAX).
+A copy of the JAX package's ``models/config.py`` (plain data, no JAX), with
+the settings of the port's own architectures as fields at the end.
 """
 
 from __future__ import annotations
@@ -55,24 +56,23 @@ class ModelConfig:
     flash_block_k: int = 2048       # flash-attention KV block length (§Perf C3)
 
     # -- settings only the port's own architectures change -------------------
-    # Plain class attributes here, fields of :class:`PortConfig`: a
-    # configuration the JAX package also has keeps the reference's fields and
-    # no more, and reads these defaults, which are its semantics.
-    rms_norm_eps = 1e-6
+    # a configuration the JAX package also has holds these defaults, which are
+    # its semantics
+    rms_norm_eps: float = 1e-6
     # sliding-window attention (0: none); layer i is global where
     # window_pattern[i % len] == "G", and with a window global layers take
     # no RoPE (EXAONE 4.0's rule)
-    window = 0
-    window_pattern = "L"
-    post_norm = False         # ln1 / ln2 norm the attention / MLP outputs
-    first_dense_layers = 0    # MoE family: leading layers with a dense SwiGLU of d_ff
+    window: int = 0
+    window_pattern: str = "L"
+    post_norm: bool = False         # ln1 / ln2 norm the attention / MLP outputs
+    first_dense_layers: int = 0     # MoE family: leading layers with a dense SwiGLU of d_ff
     # the dropless, sigmoid-routed expert layer of one card of an
     # expert-parallel pool: the router scores all n_experts, this card
     # computes experts [0, experts_held) for every token routed to them (0:
     # all experts, by the capacity dispatch)
-    experts_held = 0
-    routed_scale = 1.0        # the routed experts' weights, times this
-    n_shared_experts = 0      # always-on experts of expert_d_ff each
+    experts_held: int = 0
+    routed_scale: float = 1.0       # the routed experts' weights, times this
+    n_shared_experts: int = 0       # always-on experts of expert_d_ff each
 
     @property
     def hd(self) -> int:
@@ -96,21 +96,6 @@ class ModelConfig:
     def supports_long_context(self) -> bool:
         """long_500k runs only for sub-quadratic (SSM/hybrid) families."""
         return self.family in ("ssm", "hybrid")
-
-
-@dataclasses.dataclass(frozen=True)
-class PortConfig(ModelConfig):
-    """A configuration of an architecture the JAX package lacks: the
-    settings :class:`ModelConfig` holds as class attributes are fields."""
-
-    rms_norm_eps: float = 1e-6
-    window: int = 0
-    window_pattern: str = "L"
-    post_norm: bool = False
-    first_dense_layers: int = 0
-    experts_held: int = 0
-    routed_scale: float = 1.0
-    n_shared_experts: int = 0
 
 
 def n_params(cfg: ModelConfig) -> int:

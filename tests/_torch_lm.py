@@ -4,7 +4,9 @@
 overrides), draws the reference's parameters and carries them across with
 ``convert.lm_params_from_jax``; ``decode_both`` runs a teacher-forced
 decode in both packages from zeroed caches; ``serve_both`` runs both
-packages' ``serve.run`` on the same parameters.  Arrays cross as numpy.
+packages' ``serve.run`` on the same parameters; ``split_config`` parts a
+port config into the reference's fields and the port's own.  Arrays cross
+as numpy.
 """
 
 import dataclasses
@@ -17,14 +19,29 @@ import torch
 from repro.configs import registry as jregistry
 from repro.launch import serve as jserve
 from repro.models import build_model as jbuild
+from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.configs import registry
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import serve
 from repro_torch.models import build_model, init_cache
 
 REF = dict(atol=1e-4, rtol=1e-4)
+# the fields of the port's ModelConfig that the reference's lacks, at the
+# values a configuration the JAX package also has must hold
+PORT_ONLY_DEFAULTS = dict(rms_norm_eps=1e-6, window=0, window_pattern="L", post_norm=False,
+                          first_dense_layers=0, experts_held=0, routed_scale=1.0,
+                          n_shared_experts=0)
 SERVE_FIELDS = ("requests", "decode_steps", "tokens_generated", "peak_active",
                 "first_token_step", "finish_step")
+
+
+def split_config(cfg) -> tuple[dict, dict]:
+    """``cfg``'s fields as two dicts: those of the reference's ModelConfig,
+    and the port's others."""
+    ref = {f.name for f in dataclasses.fields(JModelConfig)}
+    d = dataclasses.asdict(cfg)
+    return ({k: v for k, v in d.items() if k in ref},
+            {k: v for k, v in d.items() if k not in ref})
 
 
 def carried(arch: str, seed: int, **over):

@@ -31,7 +31,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
-from _torch_lm import REF, carried  # noqa: E402
+from _torch_lm import PORT_ONLY_DEFAULTS, REF, carried, split_config  # noqa: E402
 
 from repro import optim as joptim  # noqa: E402
 from repro.checkpoint import ckpt as jckpt  # noqa: E402
@@ -261,5 +261,6 @@ def test_hundred_m_config_is_the_examples():
     spec = importlib.util.spec_from_file_location("ref_train_lm", ROOT / "examples" / "train_lm.py")
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
-    want = dataclasses.asdict(ref.hundred_m_config())
-    assert dataclasses.asdict(train_lm.hundred_m_config()) == want
+    shared, own = split_config(train_lm.hundred_m_config())
+    assert shared == dataclasses.asdict(ref.hundred_m_config())
+    assert own == PORT_ONLY_DEFAULTS
