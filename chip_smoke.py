@@ -4841,6 +4841,13 @@ def build_all(torch) -> None:
                                                       and "ILi0E" not in k["kernel"])}
             if len(spills) != want or any(spills.values()):
                 raise SystemExit(f"{n}'s register-path kernels spill or are missing: {spills}")
+        # K4's schedule overlaps softmax with asynchronous wgmma groups; a
+        # kernel whose wgmma ptxas serialized, or that spills, has lost that
+        if n == "flash_attn_tc":
+            lost = [k["kernel"] for k in report if k["wgmma_serialized"]
+                    or k["spill_stores"] + k["spill_loads"]]
+            if len(report) != 2 * len(fops.TC_HEAD_DIMS) or lost:
+                raise SystemExit(f"flash_attn_tc kernels serialized, spilling or missing: {lost}")
 
 
 def phase_capture_fails(torch):

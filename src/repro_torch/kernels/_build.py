@@ -65,9 +65,13 @@ def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
 
 
 def ptxas_report(so: Path) -> list[dict]:
-    """Per kernel of a built library: registers, static shared memory, spills."""
+    """Per kernel of a built library: registers, static shared memory, spills,
+    and whether ptxas serialized its wgmma (``wgmma_serialized``: each
+    mma_async then waits for the one before, so nothing overlaps it)."""
     out, name, spill = [], None, (0, 0)
-    for line in Path(so).with_suffix(".ptxas.txt").read_text().splitlines():
+    text = Path(so).with_suffix(".ptxas.txt").read_text()
+    serialized = set(re.findall(r"wgmma\.mma_async instructions are serialized.*?'(\S+?)'", text))
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name, spill = m.group(1), (0, 0)
@@ -79,6 +83,7 @@ def ptxas_report(so: Path) -> list[dict]:
             smem = re.search(r"(\d+) bytes smem", line)
             out.append({"kernel": name, "registers": int(m.group(1)),
                         "static_smem": int(smem.group(1)) if smem else 0,
-                        "spill_stores": spill[0], "spill_loads": spill[1]})
+                        "spill_stores": spill[0], "spill_loads": spill[1],
+                        "wgmma_serialized": name in serialized})
             name = None
     return out

@@ -8,15 +8,19 @@ output in q's dtype.
 
 ``flash_attention_tc_emulation`` repeats on the CPU the numerics of the
 bf16 tensor-core kernel (``csrc/flash_attn_tc.cu``): fp32 scores, the
-online softmax over tiles of 64 keys in log2 units, and P rounded to bf16
-before P.V.  Only the tests call it; no path of the port does.
+online softmax over the kernel's key tiles (``tc_key_tile``: 128 keys for
+d <= 128, 64 for d 160 and 256) in log2 units with the scale fused into
+exp2's argument, and P rounded to bf16 before P.V.  It does not flush
+exp2's subnormal results to zero as the kernel does: such a probability
+adds nothing visible to a row whose max contributes 1.  Only the tests call
+it; no path of the port does.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_tc_emulation"]
+__all__ = ["NEG_INF", "flash_attention_ref", "flash_attention_tc_emulation", "tc_key_tile"]
 
 NEG_INF = -1e30
 
@@ -62,20 +66,31 @@ def _attention(q, k, v, causal: bool, window: int | None, q_offset: int) -> torc
     return torch.einsum("bhqk,bhkd->bhqd", p, vt).transpose(1, 2).to(q.dtype)
 
 
-def flash_attention_tc_emulation(q, k, v, causal: bool = True, block_k: int = 64,
+def tc_key_tile(d: int) -> int:
+    """Keys a tile of the tensor-core kernel at head dim ``d`` (its ``Cfg<D>::BK``)."""
+    return 128 if d <= 128 else 64
+
+
+def flash_attention_tc_emulation(q, k, v, causal: bool = True, block_k: int | None = None,
                                  p_dtype=torch.bfloat16, window: int | None = None) -> torch.Tensor:
-    """The tensor-core K4's arithmetic, tile by tile: s = q.k in fp32, scaled
-    by d^-1/2 * log2(e) into log2 units, masked to -1e30, exp2 against the
-    running max; l sums the fp32 p, and P.V takes p rounded to ``p_dtype``.
-    With ``window`` every tile runs, masked: the kernel skips the tiles
-    wholly outside a row's window, which adds p = 0 after a real score."""
+    """The tensor-core K4's arithmetic, tile by tile: s = q.k in fp32, masked
+    to -inf; the running max m in log2 units, max(s) times the fp32 scale
+    d^-1/2 * log2(e); p = exp2(s * scale - m) with the product and the
+    difference rounded once, as the kernel's fused multiply-add (here in
+    float64, then to fp32); l sums the fp32 p, and P.V takes p rounded to
+    ``p_dtype``.  ``block_k`` None: the kernel's tile for the head dim
+    (``tc_key_tile``).  With ``window`` every tile runs, masked: the kernel
+    skips the tiles wholly outside a row's window, which adds p = 0."""
     d = q.shape[-1]
+    block_k = block_k or tc_key_tile(d)
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).to(torch.float32)                    # (B, Hq, Sq, d)
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2).to(torch.float32)
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).to(torch.float32)
     Sq, Sk = qt.shape[2], kt.shape[2]
-    scale_log2 = (1.0 / d ** 0.5) * 1.4426950408889634
+    # the host's fp32 scale * log2(e)
+    f32 = torch.float32
+    scale_log2 = torch.tensor(1.0 / d ** 0.5, dtype=f32) * torch.tensor(1.4426950408889634, dtype=f32)
     qpos = torch.arange(Sq)[:, None]
     m = torch.full(qt.shape[:3] + (1,), NEG_INF)
     l = torch.zeros_like(m)
@@ -83,16 +98,16 @@ def flash_attention_tc_emulation(q, k, v, causal: bool = True, block_k: int = 64
     for k0 in range(0, Sk, block_k):
         kpos = torch.arange(k0, k0 + block_k)[None, :]
         kb = kt[:, :, k0:k0 + block_k]
-        s = torch.einsum("bhqd,bhkd->bhqk", qt, kb) * scale_log2
-        s = torch.nn.functional.pad(s, (0, block_k - s.shape[-1]), value=NEG_INF)
+        s = torch.einsum("bhqd,bhkd->bhqk", qt, kb)
+        s = torch.nn.functional.pad(s, (0, block_k - s.shape[-1]), value=-torch.inf)
         valid = kpos < Sk
         if causal:
             valid = valid & (qpos >= kpos)
             if window:
                 valid = valid & (qpos - kpos < window)
-        s = s.masked_fill(~valid, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.exp2(s - m_new)
+        s = s.masked_fill(~valid, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True) * scale_log2)
+        p = torch.exp2((s.double() * scale_log2.double() - m_new.double()).float())
         alpha = torch.exp2(m - m_new)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
         pv = p[..., :kb.shape[2]].to(p_dtype).to(torch.float32)

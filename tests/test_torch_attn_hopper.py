@@ -10,9 +10,10 @@ run them) and against the fp32 plain versions.  Inputs come from a seed
 with numpy.
 
 Tolerances:
-* K4 emulation vs Pallas, bf16 inputs: 3e-2, the bf16 gate of the card's
-  kernel-vs-plain check.  Measured (CPU): at most 0.015625, one bf16 ulp of
-  outputs in [2, 4), because both round the output to bf16.
+* K4 emulation vs Pallas, bf16 inputs, both at the kernel's key tile for
+  the head dim: 3e-2, the bf16 gate of the card's kernel-vs-plain check.
+  Measured (CPU): at most 0.015625, one bf16 ulp of outputs in [2, 4),
+  because both round the output to bf16.
 * K4 emulation vs the fp32 plain version on bf16-valued fp32 inputs, which
   isolates P's rounding to bf16: 3e-2; measured at most 0.0035 over the
   sweep.  With P kept in fp32 the emulation is the plain version's
@@ -41,8 +42,9 @@ from repro_torch.kernels.flash_attn import ref as fref  # noqa: E402
 FP32 = dict(atol=3e-5, rtol=3e-5)
 BF16 = dict(atol=3e-2, rtol=3e-2)
 HEAD_DIMS = (32, 64, 80, 128, 160, 256)
-# (causal, Sq, Sk): square and ragged causal, and non-causal with Sq != Sk
-FLASH_CASES = [(True, 100, 100), (False, 70, 150), (True, 130, 130)]
+# (causal, Sq, Sk): square and ragged causal, and non-causal with Sq != Sk; the
+# last two put a ragged Sq of 130 over the kernel's 128-key tile
+FLASH_CASES = [(True, 100, 100), (False, 70, 150), (True, 130, 130), (False, 130, 257)]
 
 
 def _bf16(rng, shape):
@@ -60,14 +62,16 @@ def _t(a):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("causal,Sq,Sk", FLASH_CASES)
 def test_tc_emulation_matches_pallas(d, causal, Sq, Sk):
+    """At the kernel's key tile for the head dim, on both sides."""
+    tile = fref.tc_key_tile(d)
     rng = np.random.default_rng(d + Sq)
     q, k, v = _bf16(rng, (1, Sq, 4, d)), _bf16(rng, (1, Sk, 2, d)), _bf16(rng, (1, Sk, 2, d))
     want = np.asarray(
         jfa.flash_attention_tpu(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                causal=causal, block_q=64, block_k=64),
+                                causal=causal, block_q=64, block_k=tile),
         np.float32,
     )
-    got = fref.flash_attention_tc_emulation(_t(q), _t(k), _t(v), causal)
+    got = fref.flash_attention_tc_emulation(_t(q), _t(k), _t(v), causal, block_k=tile)
     assert got.dtype == torch.bfloat16 and got.shape == (1, Sq, 4, d)
     np.testing.assert_allclose(got.float().numpy(), want, **BF16)
 
@@ -81,11 +85,22 @@ def test_tc_emulation_p_in_bf16_error_against_fp32_plain(d, causal, Sq, Sk):
     rng = np.random.default_rng(d + Sq)
     q, k, v = (_t(_bf16(rng, s)).float() for s in ((1, Sq, 4, d), (1, Sk, 2, d), (1, Sk, 2, d)))
     plain = fref.flash_attention_ref(q, k, v, causal)
-    p_bf16 = fref.flash_attention_tc_emulation(q, k, v, causal)
+    p_bf16 = fref.flash_attention_tc_emulation(q, k, v, causal)  # at the kernel's tile
     p_fp32 = fref.flash_attention_tc_emulation(q, k, v, causal, p_dtype=torch.float32)
     torch.testing.assert_close(p_bf16, plain, **BF16)
     torch.testing.assert_close(p_fp32, plain, **FP32)
     assert float((p_bf16 - plain).abs().max()) > float((p_fp32 - plain).abs().max())
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_tc_emulation_defaults_to_the_kernels_tile(d):
+    """128 keys a tile up to d 128 (a second 64-register S fits beside O),
+    64 at d 160 and 256; the default is that tile, bit for bit."""
+    assert fref.tc_key_tile(d) == (128 if d <= 128 else 64)
+    rng = np.random.default_rng(d)
+    q, k, v = (_t(_bf16(rng, s)) for s in ((1, 200, 4, d), (1, 200, 2, d), (1, 200, 2, d)))
+    tiled = fref.flash_attention_tc_emulation(q, k, v, True, block_k=fref.tc_key_tile(d))
+    assert torch.equal(fref.flash_attention_tc_emulation(q, k, v, True), tiled)
 
 
 @pytest.mark.parametrize("block_k", [32, 64, 128])
@@ -118,6 +133,31 @@ def test_k4_variant_rejects_other_dtypes_and_cpu_keeps_the_plain_path():
     q = torch.randn(1, 8, 2, 96).bfloat16()
     out = fa.flash_attention(q, q, q)
     torch.testing.assert_close(out, fref.flash_attention_ref(q, q, q), rtol=0, atol=0)
+
+
+def test_ptxas_report_flags_serialized_wgmma(tmp_path):
+    """K4's overlap needs ptxas to keep its wgmma asynchronous: the report
+    marks a kernel whose wgmma ptxas serialized (``chip_smoke.build_all``
+    fails on one), and its registers and spills as before."""
+    from repro_torch.kernels import _build
+
+    so = tmp_path / "lib.so"
+    so.with_suffix(".ptxas.txt").write_text(
+        "ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1av\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to insufficient register resources for the wgmma pipeline in the "
+        "function '_Z1av'\n"
+        "ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 16 bytes smem, 384 bytes cmem[0]\n")
+    a, b = _build.ptxas_report(so)
+    assert a == {"kernel": "_Z1av", "registers": 168, "static_smem": 0, "spill_stores": 0,
+                 "spill_loads": 0, "wgmma_serialized": True}
+    assert b == {"kernel": "_Z1bv", "registers": 40, "static_smem": 16, "spill_stores": 8,
+                 "spill_loads": 4, "wgmma_serialized": False}
 
 
 def test_k4_counters_name_both_variants():

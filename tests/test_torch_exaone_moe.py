@@ -251,7 +251,7 @@ def test_window_plain_versions_agree(S, W):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(L.flash_attention(q, k, v, block_k=32, window=W), want,
                                rtol=1e-5, atol=1e-5)
-    # the tensor-core kernel's numerics: bf16 P, 64-key tiles
+    # the tensor-core kernel's numerics: bf16 P, its key tiles
     emu = fref.flash_attention_tc_emulation(q, k, v, window=W)
     torch.testing.assert_close(emu, want, rtol=3e-2, atol=3e-2)
     # each query's keys, by hand
