@@ -11,7 +11,8 @@
                                       # service; with --profile, its wave profiled),
                                       # and stop: no result lines
     python3 chip_smoke.py --attn      # build, then phases 7 and 10 only (K4/K5 checked
-                                      # and timed), and stop: no result lines
+                                      # and timed), and one kernels line: the row of
+                                      # K4's narrower-v instance
     python3 chip_smoke.py --kexaone   # build, then phases 7, 17c and 17b only (K4's
                                       # window and the norm kernel checked and timed,
                                       # K-EXAONE's served path), and one kernels line:
@@ -132,6 +133,14 @@ Phases, one JSON line each; any failure ends the run with a nonzero exit:
                 kernel's bits; the fp32 kernel refuses a window; the 32768
                 call timed beside the plain version, the causal kernel and
                 the bound.
+                K4's narrower-v instance (bf16) at DeepSeek-V3's latent
+                attention (128 heads, q/k 192, v 128, MLA's softmax scale,
+                causal, S 4096 and 32768) against the plain version in blocks
+                of queries, the gap within ATTN_TOL and its RMS within
+                MLA_REL_TOL of the plain output's RMS, one
+                narrower-v launch a call, the same bits twice; each timed
+                beside the plain version, SDPA and the bound
+                (``cardbench/counts/deepseek.mla_attn_bound``).
 8. lm_parity    reduced yi-9b in fp32, one set of seed-drawn parameters on the
                 card and on the port's CPU path: ``serve.run`` tokens equal,
                 prefill and decode logits within the fp32 bound, and every K4
@@ -1953,6 +1962,16 @@ WINDOW_CASES = [
 ]
 KEXAONE_WINDOW = WINDOW_CASES[1]
 WINDOW_BLOCK_Q = 1024
+# K4's narrower-v instance, bf16 only: DeepSeek-V3's latent attention at the
+# dsv3-long-ttft cell's shortest and longest prompts, (B, S, H, d, dv), causal.
+# ATTN_TOL alone would hardly check it: each row at 32768 averages hundreds
+# of keys, so outputs lie near 0.04.  So the RMS of the gap is held besides
+# to MLA_REL_TOL of the plain output's RMS: both sides round to bf16 and the
+# kernel's P.V takes bf16 P (2^-9 of a value or a term), some 0.3% of the
+# RMS, while a wrong scale or a misplaced v column lands tens of percent off.
+MLA_CASES = [(1, 4096, 128, 192, 128), (1, 32768, 128, 192, 128)]
+MLA_REL_TOL = 1e-2
+MLA_BLOCK_Q = 256
 YI_DECODE = (4, 32, 4, 4096, 128)                  # B, Hq, Hkv, S, d
 DECODE_EDGES = [
     (1, 8, 8, 128, 64),      # MHA
@@ -1996,7 +2015,8 @@ def phase_attn_kernels(torch):
             torch.cuda.synchronize()
             counted = {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
                 "flash_attention": 1, "flash_attention_tc": int(variant == "tc"),
-                "flash_attention_fp32": int(variant == "fp32"), "flash_attention_window": 0}
+                "flash_attention_fp32": int(variant == "fp32"), "flash_attention_window": 0,
+                "flash_attention_dv": 0}
             err, ok = _close(torch, out, fref.flash_attention_ref(q, k, v, causal), dname)
             rec = {"kernel": "flash_attention", "variant": variant, "dtype": dname,
                    "shape": list(shape), "max_abs_err": err, "tol": ATTN_TOL[dname]}
@@ -2081,7 +2101,67 @@ def phase_attn_kernels(torch):
     for kname, e in errs.items():
         res[kname]["max_abs_err"] = max(e)
     res["flash_attention_window"] = _window_kernels(torch, fops, fref, rn)
+    res["flash_attention_dv"] = _dv_kernels(torch, fops, fref, rn)
     return res
+
+
+def _dv_kernels(torch, fops, fref, rn) -> dict:
+    """K4's narrower-v instance against the plain version at MLA_CASES with
+    MLA's softmax scale, each call's launches counted; the longest case's
+    record (timed beside the plain version, SDPA and the bound), with the
+    narrower-v launches of this phase and the largest gaps."""
+    import torch.nn.functional as F
+
+    from cardbench.counts.deepseek import mla_attn_bound
+    from repro_torch.configs import registry
+    from repro_torch.models import mla
+
+    bf16, scale = torch.bfloat16, mla.softmax_scale(registry.get("deepseek-v3"))
+    errs, abs_errs, timed, launched = [], [], {}, 0
+    for case in MLA_CASES:
+        B, S, H, d, dv = case
+        q, k = rn(B, S, H, d, dtype=bf16), rn(B, S, H, d, dtype=bf16)
+        v = rn(B, S, H, dv, dtype=bf16)
+        n0 = dict(fops.LAUNCHES)
+        out = fops.flash_attention(q, k, v, True, scale=scale)
+        torch.cuda.synchronize()
+        counted = {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
+            "flash_attention": 1, "flash_attention_tc": 1, "flash_attention_fp32": 0,
+            "flash_attention_window": 0, "flash_attention_dv": 1}
+
+        def plain():
+            return fref.flash_attention_ref(q, k, v, True, block_q=MLA_BLOCK_Q, scale=scale)
+
+        want = plain().float()
+        gap = out.float() - want
+        rms = float(want.square().mean().sqrt())
+        err, rel = float(gap.abs().max()), float(gap.square().mean().sqrt()) / rms
+        del want, gap
+        same = bool(torch.equal(out, fops.flash_attention(q, k, v, True, scale=scale)))
+        ok = err <= ATTN_TOL["bfloat16"] and rel <= MLA_REL_TOL and same
+        rec = {"kernel": "flash_attention_dv", "variant": "tc", "dtype": "bfloat16",
+               "shape": [B, S, H, d, dv], "scale": scale, "plain_rms": rms,
+               "max_abs_err": err, "tol": ATTN_TOL["bfloat16"], "rms_rel_err": rel,
+               "tol_rms_rel": MLA_REL_TOL, "same_bits_twice": same}
+        if case == MLA_CASES[-1]:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            bms, by = mla_attn_bound(S, H, d, dv)
+            rec.update(
+                ms=device_ms(torch, lambda: fops.flash_attention(q, k, v, True, scale=scale), 5, 3),
+                plain_ms=device_ms(torch, plain, 1, 1),
+                library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale), 5, 3),
+                bound_ms=bms, bound_by=by)
+            timed = rec
+        launched += fops.LAUNCHES["flash_attention_dv"] - n0["flash_attention_dv"]
+        errs.append(rel)
+        abs_errs.append(err)
+        emit("attn_kernels", **rec, launch_counted=counted, ok=ok and counted)
+        if not (ok and counted):
+            raise SystemExit(f"K4's narrower-v instance disagrees with its plain version: {rec}")
+        del q, k, v, out
+    return {**timed, "max_abs_err": max(abs_errs), "rms_rel_err": max(errs),
+            "launches": launched}
 
 
 def _window_kernels(torch, fops, fref, rn) -> dict:
@@ -2102,7 +2182,7 @@ def _window_kernels(torch, fops, fref, rn) -> dict:
         torch.cuda.synchronize()
         counted = {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
             "flash_attention": 1, "flash_attention_tc": 1, "flash_attention_fp32": 0,
-            "flash_attention_window": 1}
+            "flash_attention_window": 1, "flash_attention_dv": 0}
 
         def plain():
             return fref.flash_attention_ref(q, k, v, True, W, block_q=WINDOW_BLOCK_Q)
@@ -2212,7 +2292,8 @@ def k4_variants(n: int, dtype: str = "bfloat16") -> dict:
     """K4's per-variant launch counts for n calls in one dtype without a
     window: bf16 runs on the tensor-core kernel, fp32 on the CUDA-core one."""
     tc = n if dtype == "bfloat16" else 0
-    return {"flash_attention_tc": tc, "flash_attention_fp32": n - tc, "flash_attention_window": 0}
+    return {"flash_attention_tc": tc, "flash_attention_fp32": n - tc, "flash_attention_window": 0,
+            "flash_attention_dv": 0}
 
 
 def fp32_variant_only(fops, before: dict) -> bool:
@@ -3587,6 +3668,21 @@ def phase_kexaone_slice(torch, profile: bool = False):
     return main["launches"]
 
 
+def _dv_row(attn: dict) -> dict:
+    """The kernels line's row of K4's narrower-v instance (no TPU kernel: the
+    JAX package has no latent attention), timed at dsv3-long-ttft's longest
+    prompt; its launches are phase 7's own (no serving path here runs it),
+    and beside the widest gap the gap's RMS over the plain output's."""
+    w = attn["flash_attention_dv"]
+    return {"name": "flash_attention_dv", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn_tc.cu",
+            "replaces": "none: the JAX package has no latent attention",
+            "launches": w["launches"], "max_abs_err": w["max_abs_err"],
+            "rms_rel_err": w["rms_rel_err"],
+            "ms": w["ms"], "plain_ms": w["plain_ms"], "bound_ms": w["bound_ms"],
+            "bound_by": w["bound_by"], "library_ms": w["library_ms"]}
+
+
 def _window_row(attn: dict, launches: dict) -> dict:
     """The kernels line's row of K4's windowed instance (no TPU kernel: the
     JAX package has no window), timed at K-EXAONE's longest prompt."""
@@ -4842,11 +4938,12 @@ def build_all(torch) -> None:
             if len(spills) != want or any(spills.values()):
                 raise SystemExit(f"{n}'s register-path kernels spill or are missing: {spills}")
         # K4's schedule overlaps softmax with asynchronous wgmma groups; a
-        # kernel whose wgmma ptxas serialized, or that spills, has lost that
+        # kernel whose wgmma ptxas serialized, or that spills, has lost that.
+        # Two instances a head dim (causal, window), one a narrower-v pair.
         if n == "flash_attn_tc":
             lost = [k["kernel"] for k in report if k["wgmma_serialized"]
                     or k["spill_stores"] + k["spill_loads"]]
-            if len(report) != 2 * len(fops.TC_HEAD_DIMS) or lost:
+            if len(report) != 2 * len(fops.TC_HEAD_DIMS) + len(fops.TC_DV_PAIRS) or lost:
                 raise SystemExit(f"flash_attn_tc kernels serialized, spilling or missing: {lost}")
 
 
@@ -4920,8 +5017,9 @@ def main() -> int:
     profile = "--profile" in args
     build_all(torch)
     if "--attn" in args:  # a kernel change's first call: build, check, time, stop
-        phase_attn_kernels(torch)
+        attn = phase_attn_kernels(torch)
         phase_mm_attn_kernels(torch)
+        print(json.dumps({"kernels": [_dv_row(attn)]}), flush=True)
         return 0
     if "--kexaone" in args:  # K4's window and the norm checked and timed, then its served path
         attn = phase_attn_kernels(torch)
@@ -5025,6 +5123,7 @@ def main() -> int:
             "library_ms": main_path["library_ms"],
         })
     rows.append(_window_row(attn, launches))
+    rows.append(_dv_row(attn))
     rows.append(_norm_row(norm, launches))
     for kname, t in step_kernels.items():  # no TPU kernel: the plain chain around K2/K3
         rows.append({"name": kname, "route": "cuda",

@@ -9,6 +9,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.configs import (
     arctic_480b,
     command_r_35b,
+    deepseek_v3,
     internvl2_26b,
     k_exaone_236b,
     mistral_nemo_12b,
@@ -40,7 +41,8 @@ ARCHS: dict[str, ModelConfig] = {
 # architectures the port serves that the JAX package has no twin of: found
 # by ``get``, left out of ``ARCHS`` (the tests hold ``ARCHS`` to the
 # reference's registry)
-PORT_ONLY: dict[str, ModelConfig] = {c.name: c for c in (k_exaone_236b.CONFIG,)}
+PORT_ONLY: dict[str, ModelConfig] = {c.name: c for c in (k_exaone_236b.CONFIG,
+                                                          deepseek_v3.CONFIG)}
 
 
 def get(name: str) -> ModelConfig:
@@ -72,6 +74,12 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         # two periods of the window pattern, window 4, 4 of 8 experts held
         over.update(n_layers=2 * len(cfg.window_pattern), head_dim=16, window=min(cfg.window, 4),
                     n_experts=8, experts_held=4, n_shared_experts=min(cfg.n_shared_experts, 1))
+    if cfg.kv_lora_rank:
+        # one dense layer and three expert layers; 4 groups of 2 experts, the
+        # top-2 from the best 2 groups, so that the group limit binds
+        over.update(n_layers=4, first_dense_layers=1, n_kv_heads=4, head_dim=24, q_lora_rank=32,
+                    kv_lora_rank=16, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+                    n_group=4, topk_group=2)
     if cfg.family == "hybrid":
         over.update(n_layers=4, attn_every=2, ssm_state=16, ssm_head_dim=16)
     if cfg.family == "ssm":

@@ -39,7 +39,8 @@
 //   so each key costs half the mbarrier round trips and online-softmax
 //   rescales of 64-key tiles.  d = 160 and 256 keep BK = 64 (P.V in chunks
 //   of 64 columns): their O (80 and 128 registers a thread) leaves no room
-//   for a 128-key S beside it.  Cfg<D> sets both from the head dim.
+//   for a 128-key S beside it.  Cfg<D, DV> sets both, the tile from v's
+//   head dim DV (= D but below).
 // * Q, K and V arrive by TMA (cp.async.bulk.tensor, 4-D maps over
 //   (d, heads, positions, batch) encoded on the host each call), with the
 //   128-byte swizzle that the wgmma descriptors name.  A box is 64 columns
@@ -75,7 +76,7 @@
 //   - O's rescale is left out where no row of a warp has a new max: alpha
 //     is then exactly 1, so no bit changes.
 //   The sums are the serial schedule's, in the same order, at the tile
-//   Cfg<D> sets.  What bounds the schedule: a warpgroup's softmax takes
+//   Cfg<D, DV> sets.  What bounds the schedule: a warpgroup's softmax takes
 //   about as long as the other warpgroup's products, so the overlap leaves
 //   little slack; a q tile's first S and last P.V are not overlapped; and
 //   every block reads its K and V tiles from L2 (with no loads the causal
@@ -84,8 +85,8 @@
 // * Causal: the key loop ends at the q tile's diagonal, a warpgroup skips
 //   the tiles wholly above its own rows, and only the diagonal tile and a
 //   ragged last tile are masked.  The q tiles are launched longest first
-//   (gridDim.z counts down the diagonal), so the long blocks do not finish
-//   last.  Skipping is exact: a skipped tile would give p = 0, alpha = 1.
+//   (the grid's q-tile index counts down the diagonal), so the long blocks
+//   do not finish last.  Skipping is exact: a skipped tile would give p = 0, alpha = 1.
 // * Ragged edges: rows past Sq are zero-filled on load and not stored; keys
 //   past Sk score -1e30.
 // * Sliding window (window > 0, causal): query i keeps the keys
@@ -98,12 +99,29 @@
 //   a device trace tells them apart; window == 0 launches
 //   flash_attn_tc_kernel<D>, whose code is the body's with the window
 //   compiled out.
+// * A narrower V (DV < D): latent attention's heads (DeepSeek-V3's MLA)
+//   attend at d = 192 (128 nope + 64 rope dims) and give a 128-wide V, as
+//   FlashAttention-3's 192/128 instance does.  Cfg<D, DV> sizes Q, the K
+//   ring and S by D, and the V ring, O and the P.V instructions by DV, so
+//   P.V does DV's work and the output is DV wide: V is never padded to D.
+//   The key tile follows O's registers (DV): 128 keys at 192/128, with two
+//   stages a ring (Q 48 KB, a K tile 48 KB, a V tile 32 KB); the warpgroups
+//   issue freely, as at d > 128.  Its heads share no K/V (latent attention
+//   expands a K and a V per head), so the grid runs q tiles fastest: the
+//   blocks resident together are one head's q tiles and read one head's K/V
+//   out of L2, where head-fastest blocks would each stream another head's
+//   from HBM.  On an H100 at S 32768 and 128 heads: 71.1 ms, 110.6
+//   head-fastest, 81.8 with 64-key tiles in four stages; with the
+//   warpgroups' turns 66.3, not yet checked at those sizes against the
+//   plain version.  flash_attn_tc_dv_kernel<D, DV>, a name of its own in a
+//   device trace, has no window.
 // Left for later: persistent blocks (a q tile's epilogue under the next
 // one's loads), clusters (one K/V load multicast to neighbouring q tiles),
 // and a window design of its own (several q tiles sharing one K/V read).
 //
-// Layouts: q/out (B, Sq, Hq, d), k/v (B, Sk, Hkv, d), contiguous, bf16,
-// 16-byte aligned.  d in {32, 64, 80, 128, 160, 256}, one instantiation each.
+// Layouts: q (B, Sq, Hq, d), k (B, Sk, Hkv, d), v (B, Sk, Hkv, dv), out
+// (B, Sq, Hq, dv), contiguous, bf16, 16-byte aligned.  d = dv in {32, 64,
+// 80, 128, 160, 256}, or d 192 with dv 128, one instantiation each.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_bf16.h>
@@ -125,20 +143,25 @@ constexpr int ERR_NO_ENCODER = 10000;
 constexpr int ERR_ENCODE = 10001;  // + the CUresult
 constexpr int ERR_HEAD_DIM = 20001;
 constexpr int ERR_WINDOW = 20002;  // a window without the causal mask
+constexpr int ERR_DV_WINDOW = 20003;  // a window with a narrower v
 
-template <int D>
+template <int D, int DV = D>
 struct Cfg {
-  static constexpr int DC = (D + 63) / 64;          // 64-column chunks (boxes) of a row
-  static constexpr int BK = D <= 128 ? 128 : 64;    // keys a tile
-  static constexpr int ON = DC <= 2 ? 64 * DC : 64; // columns of O a P.V instruction
-  static constexpr int OC = 64 * DC / ON;           // P.V instructions a 16-key step
-  static constexpr bool PINGPONG = D <= 128;        // the warpgroups take turns (see above)
-  static constexpr int Q_BYTES = BQ * 128 * DC;     // chunk c: BQ rows of 128 bytes
-  static constexpr int KV_BYTES = BK * 128 * DC;    // a tile of K or of V
-  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256 - Q_BYTES) / (2 * KV_BYTES);
-  static constexpr int STAGES = FIT > 4 ? 4 : FIT;  // tiles in each of the K and V rings
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 256;
+  static constexpr int DC = (D + 63) / 64;           // 64-column chunks (boxes) of a q/k row
+  static constexpr int DCV = (DV + 63) / 64;         // and of a v row
+  static constexpr int BK = DV <= 128 ? 128 : 64;    // keys a tile
+  static constexpr int ON = DCV <= 2 ? 64 * DCV : 64; // columns of O a P.V instruction
+  static constexpr int OC = 64 * DCV / ON;           // P.V instructions a 16-key step
+  static constexpr bool PINGPONG = D <= 128;         // the warpgroups take turns (see above)
+  static constexpr bool Q_MAJOR = DV != D;           // the grid's q tiles fastest (see above)
+  static constexpr int Q_BYTES = BQ * 128 * DC;      // chunk c: BQ rows of 128 bytes
+  static constexpr int K_BYTES = BK * 128 * DC;      // a tile of K
+  static constexpr int V_BYTES = BK * 128 * DCV;     // a tile of V
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256 - Q_BYTES) / (K_BYTES + V_BYTES);
+  static constexpr int STAGES = FIT > 4 ? 4 : FIT;   // tiles in each of the K and V rings
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES) + 256;
   static_assert(STAGES >= 2, "the K and V rings need two stages each");
+  static_assert(DV <= D, "v is at most as wide as q and k");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -325,9 +348,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // One consumer warpgroup: its registers (O, S, P, the running max m, the
 // sums l, O's pending rescale alpha) and its steps on a key tile.  Every
 // member inlines, so the arrays stay in registers.
-template <int D, bool WINDOW>
+template <int D, int DV, bool WINDOW>
 struct Consumer {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   static constexpr int BK = C::BK;
   float o[C::OC][C::ON / 2];
   float sc[BK / 2];         // S of one tile; wgmma's first step of a tile overwrites it
@@ -384,7 +407,7 @@ struct Consumer {
 
   // S = Q . K_t^T over the DC chunks of d, 16 columns a step: one wgmma group
   __device__ __forceinline__ void issue_s(int t) {
-    const uint32_t k_s = ring + slot(t) * C::KV_BYTES;
+    const uint32_t k_s = ring + slot(t) * C::K_BYTES;
     fence_regs(sc);
     wg_fence();
 #pragma unroll
@@ -401,7 +424,7 @@ struct Consumer {
   // Where no row of the warp has a new max, alpha is exactly 1 and the
   // rescale changes no bit: it is left out.
   __device__ __forceinline__ void issue_pv(int t) {
-    const uint32_t v_s = ring + (C::STAGES + slot(t)) * C::KV_BYTES;
+    const uint32_t v_s = ring + C::STAGES * C::K_BYTES + slot(t) * C::V_BYTES;
     const bool rescale = __any_sync(0xffffffffu, a0 != 1.f || a1 != 1.f);
 #pragma unroll
     for (int c = 0; c < C::OC; ++c) {
@@ -535,26 +558,27 @@ struct Consumer {
 };
 
 // Shared memory, from a 1024-byte aligned base: Q (DC chunks of BQ x 128 B)
-// | the K ring, STAGES x (DC chunks of BK x 128 B) | the V ring, the same |
-// mbarriers full_k[STAGES], full_v[STAGES], empty_k[STAGES],
-// empty_v[STAGES], q.
+// | the K ring, STAGES x (DC chunks of BK x 128 B) | the V ring, STAGES x
+// (DCV chunks of BK x 128 B) | mbarriers full_k[STAGES], full_v[STAGES],
+// empty_k[STAGES], empty_v[STAGES], q.
 // The kernels' body; WINDOW compiles the sliding window in (window > 0).
-template <int D, bool WINDOW>
+template <int D, int DV, bool WINDOW>
 __device__ __forceinline__ void attend(const CUtensorMap* qmap, const CUtensorMap* kmap,
                                        const CUtensorMap* vmap, __nv_bfloat16* __restrict__ out,
                                        int Sq, int Sk, int Hq, int G, int causal, int window,
                                        float scale_log2, int n_qtiles) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base;
   const uint32_t ring = base + C::Q_BYTES;
-  const uint32_t bars = ring + 2 * C::STAGES * C::KV_BYTES;
+  const uint32_t bars = ring + C::STAGES * (C::K_BYTES + C::V_BYTES);
   const uint32_t q_bar = bars + 32 * C::STAGES;
 
-  const int hq = blockIdx.x, b = blockIdx.y;
-  const int qt = causal ? n_qtiles - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int hq = C::Q_MAJOR ? blockIdx.z : blockIdx.x, b = blockIdx.y;
+  const int zq = C::Q_MAJOR ? blockIdx.x : blockIdx.z;
+  const int qt = causal ? n_qtiles - 1 - zq : zq;
   const int q0 = qt * BQ;
   const int kv_end = causal ? min(Sk, q0 + BQ) : Sk;
   const int n_tiles = (kv_end + BK - 1) / BK;
@@ -584,16 +608,17 @@ __device__ __forceinline__ void attend(const CUtensorMap* qmap, const CUtensorMa
         const int s = (t - t_lo) % C::STAGES;
         const uint32_t lap = (t - t_lo) / C::STAGES;
         const uint32_t full_k = bars + 8 * s, full_v = bars + 8 * (C::STAGES + s);
-        const uint32_t k_s = ring + s * C::KV_BYTES, v_s = k_s + C::STAGES * C::KV_BYTES;
+        const uint32_t k_s = ring + s * C::K_BYTES;
+        const uint32_t v_s = ring + C::STAGES * C::K_BYTES + s * C::V_BYTES;
         if (lap > 0) mbar_wait(bars + 8 * (2 * C::STAGES + s), (lap - 1) & 1);
-        mbar_expect_tx(full_k, C::KV_BYTES);
+        mbar_expect_tx(full_k, C::K_BYTES);
 #pragma unroll
         for (int c = 0; c < C::DC; ++c)
           tma_load_4d(k_s + c * BK * 128, kmap, full_k, 64 * c, hk, t * BK, b);
         if (lap > 0) mbar_wait(bars + 8 * (3 * C::STAGES + s), (lap - 1) & 1);
-        mbar_expect_tx(full_v, C::KV_BYTES);
+        mbar_expect_tx(full_v, C::V_BYTES);
 #pragma unroll
-        for (int c = 0; c < C::DC; ++c)
+        for (int c = 0; c < C::DCV; ++c)
           tma_load_4d(v_s + c * BK * 128, vmap, full_v, 64 * c, hk, t * BK, b);
       }
     }
@@ -601,7 +626,7 @@ __device__ __forceinline__ void attend(const CUtensorMap* qmap, const CUtensorMa
     // ---- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
-    Consumer<D, WINDOW> w;
+    Consumer<D, DV, WINDOW> w;
     w.init();
     w.q_s = q_s;
     w.ring = ring;
@@ -624,15 +649,15 @@ __device__ __forceinline__ void attend(const CUtensorMap* qmap, const CUtensorMa
     w.run(ta, tb, n_tiles);
 
     const float den0 = fmaxf(quad_sum(w.l0), 1e-30f), den1 = fmaxf(quad_sum(w.l1), 1e-30f);
-    const int64_t row_stride = (int64_t)Hq * D;
-    __nv_bfloat16* ob = out + ((int64_t)b * Sq) * row_stride + (int64_t)hq * D;
+    const int64_t row_stride = (int64_t)Hq * DV;
+    __nv_bfloat16* ob = out + ((int64_t)b * Sq) * row_stride + (int64_t)hq * DV;
     const int r0 = w.r0;
 #pragma unroll
     for (int c = 0; c < C::OC; ++c)
 #pragma unroll
       for (int j = 0; j < C::ON / 8; ++j) {
-        const int col = C::ON * c + 8 * j + w.cl;  // D is even, so col < D covers col + 1
-        if (col < D) {
+        const int col = C::ON * c + 8 * j + w.cl;  // DV is even, so col < DV covers col + 1
+        if (col < DV) {
           if (r0 < Sq)
             *reinterpret_cast<__nv_bfloat162*>(ob + r0 * row_stride + col) =
                 __floats2bfloat162_rn(w.o[c][4 * j] / den0, w.o[c][4 * j + 1] / den0);
@@ -650,7 +675,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                      int Sq, int Sk, int Hq, int G, int causal, float scale_log2, int n_qtiles) {
-  attend<D, false>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, causal, 0, scale_log2, n_qtiles);
+  attend<D, D, false>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, causal, 0, scale_log2, n_qtiles);
 }
 
 // causal attention through a sliding window of ``window`` keys
@@ -661,7 +686,18 @@ flash_attn_tc_window_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap vmap,
                             __nv_bfloat16* __restrict__ out, int Sq, int Sk, int Hq, int G,
                             int window, float scale_log2, int n_qtiles) {
-  attend<D, true>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, 1, window, scale_log2, n_qtiles);
+  attend<D, D, true>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, 1, window, scale_log2, n_qtiles);
+}
+
+// a V narrower than Q and K (DV < D), no window
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_tc_dv_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                        int Sq, int Sk, int Hq, int G, int causal, float scale_log2,
+                        int n_qtiles) {
+  attend<D, DV, false>(&qmap, &kmap, &vmap, out, Sq, Sk, Hq, G, causal, 0, scale_log2, n_qtiles);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -703,24 +739,32 @@ int make_map(CUtensorMap* map, const void* ptr, int n, int s, int h, int d, int 
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
            int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   if (window > 0 && !causal) return ERR_WINDOW;
+  if (DV != D && window > 0) return ERR_DV_WINDOW;
   CUtensorMap qm, km, vm;
   int err = make_map(&qm, q, B, Sq, Hq, D, BQ);
   if (!err) err = make_map(&km, k, B, Sk, Hkv, D, C::BK);
-  if (!err) err = make_map(&vm, v, B, Sk, Hkv, D, C::BK);
+  if (!err) err = make_map(&vm, v, B, Sk, Hkv, DV, C::BK);
   if (err) return err;
-  const void* fn = window > 0 ? (const void*)flash_attn_tc_window_kernel<D>
-                              : (const void*)flash_attn_tc_kernel<D>;
+  const void* fn;  // only the kernels of this (D, DV) are instantiated
+  if constexpr (DV != D)
+    fn = (const void*)flash_attn_tc_dv_kernel<D, DV>;
+  else
+    fn = window > 0 ? (const void*)flash_attn_tc_window_kernel<D>
+                    : (const void*)flash_attn_tc_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int n_qtiles = (Sq + BQ - 1) / BQ;
-  dim3 grid(Hq, B, n_qtiles);
+  const dim3 grid = C::Q_MAJOR ? dim3(n_qtiles, B, Hq) : dim3(Hq, B, n_qtiles);
   const float scale_log2 = scale * 1.4426950408889634f;
-  if (window > 0)
+  if constexpr (DV != D)
+    flash_attn_tc_dv_kernel<D, DV><<<grid, THREADS, C::SMEM, stream>>>(
+        qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, Hq, Hq / Hkv, causal, scale_log2, n_qtiles);
+  else if (window > 0)
     flash_attn_tc_window_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
         qm, km, vm, (__nv_bfloat16*)out, Sq, Sk, Hq, Hq / Hkv, window, scale_log2, n_qtiles);
   else
@@ -733,8 +777,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 
 extern "C" {
 
-// Shared memory one block takes at head dim d (0 for a dim not instantiated).
-size_t flash_attn_tc_shared_bytes(int d) {
+// Shared memory one block takes at head dims d (q, k) and dv (v; = d but for
+// a narrower v), 0 for dims not instantiated.
+size_t flash_attn_tc_shared_bytes(int d, int dv) {
+  if (dv != d) return d == 192 && dv == 128 ? Cfg<192, 128>::SMEM : 0;
   switch (d) {
     case 32: return Cfg<32>::SMEM;
     case 64: return Cfg<64>::SMEM;
@@ -746,10 +792,18 @@ size_t flash_attn_tc_shared_bytes(int d) {
   }
 }
 
-// window > 0 (causal only): query i keeps the keys i - window < j <= i.
+// q, k at head dim d, v and out at dv: dv = d, or a narrower v at the pairs
+// instantiated, (192, 128), without a window.  window > 0 (causal only):
+// query i keeps the keys i - window < j <= i.
 int flash_attn_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Sk,
-                  int Hq, int Hkv, int d, int causal, int window, float scale, void* stream) {
+                  int Hq, int Hkv, int d, int dv, int causal, int window, float scale,
+                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (dv != d) {
+    if (d == 192 && dv == 128)
+      return launch<192, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
+    return ERR_HEAD_DIM;
+  }
   switch (d) {
     case 32: return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
     case 64: return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, window, scale, st);
@@ -766,6 +820,7 @@ const char* flash_attn_tc_error_string(int err) {
   if (err == ERR_NO_ENCODER) return "cuTensorMapEncodeTiled not found through the runtime";
   if (err == ERR_HEAD_DIM) return "head dim not instantiated";
   if (err == ERR_WINDOW) return "a sliding window needs the causal mask";
+  if (err == ERR_DV_WINDOW) return "the narrower-v instance has no sliding window";
   if (err > ERR_ENCODE && err < ERR_HEAD_DIM) {
     snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed: CUresult %d", err - ERR_ENCODE);
     return msg;

@@ -10,6 +10,21 @@ import dataclasses
 
 
 @dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN's rotary scaling (``rope_scaling`` of type "yarn" in a model's
+    config.json): frequencies blended between interpolated (over ``factor``)
+    and extrapolated across the correction range that ``beta_fast`` and
+    ``beta_slow`` rotations give at ``original_max_position_embeddings``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -73,10 +88,35 @@ class ModelConfig:
     experts_held: int = 0
     routed_scale: float = 1.0       # the routed experts' weights, times this
     n_shared_experts: int = 0       # always-on experts of expert_d_ff each
+    # group-limited routing (DeepSeek-V3's noaux_tc): the experts in n_group
+    # groups, the top-k chosen from the topk_group groups whose two best
+    # biased scores sum highest (1, 1: no limit)
+    n_group: int = 1
+    topk_group: int = 1
+    # multi-head latent attention (DeepSeek-V2/V3; kv_lora_rank 0: none): q
+    # through a rank-q_lora_rank bottleneck, k and v from a cached latent of
+    # kv_lora_rank values and one shared rotary key of qk_rope_head_dim; a
+    # head's q/k take qk_nope_head_dim + qk_rope_head_dim, its v v_head_dim
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_scaling: RopeScaling | None = None  # YaRN (None: plain RoPE)
 
     @property
     def hd(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def qk_head_dim(self) -> int:
+        """A head's q/k width: MLA's nope + rope dims, else ``hd``."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim if self.kv_lora_rank else self.hd
+
+    @property
+    def rope_dim(self) -> int:
+        """The rotated width of a head: MLA's rope dims, else ``hd``."""
+        return self.qk_rope_head_dim if self.kv_lora_rank else self.hd
 
     def windowed(self, i: int) -> bool:
         """Whether layer ``i`` attends through the sliding window."""

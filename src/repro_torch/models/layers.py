@@ -10,6 +10,8 @@ sends attention to the hand-written kernels instead (``kernels/flash_attn``,
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -19,6 +21,7 @@ __all__ = [
     "NEG_INF",
     "embed",
     "rms_norm",
+    "yarn_mscale",
     "rope_frequencies",
     "rope_angles",
     "rotate",
@@ -65,18 +68,48 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's magnitude scale at a context ``factor``: 0.1 mscale ln(factor)
+    + 1, and 1 where the factor does not stretch."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _yarn_dim(rotations: float, head_dim: int, theta: float, max_pos: int) -> float:
+    """The frequency index that turns ``rotations`` times over ``max_pos`` positions."""
+    return head_dim * math.log(max_pos / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None, scaling=None) -> torch.Tensor:
+    """The rotary frequencies; with ``scaling`` (``config.RopeScaling``),
+    YaRN's: interpolated (over the factor) below the correction range,
+    extrapolated (as without scaling) above it, a linear ramp between."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    if scaling is None:
+        return 1.0 / (theta ** exps)
+    n = scaling.original_max_position_embeddings
+    lo = max(math.floor(_yarn_dim(scaling.beta_fast, head_dim, theta, n)), 0)
+    hi = min(math.ceil(_yarn_dim(scaling.beta_slow, head_dim, theta, n)), head_dim - 1)
+    ramp = (torch.arange(head_dim // 2, dtype=torch.float32, device=device) - lo) / (
+        (hi + 0.001 if hi == lo else hi) - lo)
+    keep = 1.0 - ramp.clamp(0, 1)  # the extrapolated share of each frequency
+    inter = 1.0 / (scaling.factor * theta ** exps)
+    return inter * (1 - keep) + 1.0 / (theta ** exps) * keep
 
 
-def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float, scaling=None):
     """(cos, sin) of the rotary angles, fp32, shaped (..., S, 1, hd/2) for
     ``rotate``; positions broadcastable to (..., S).  A model computes them
-    once per call and rotates every layer's q and k with them."""
-    freqs = rope_frequencies(head_dim, theta, positions.device)  # (hd/2,)
+    once per call and rotates every layer's q and k with them.  With YaRN's
+    ``scaling``, its frequencies, and cos and sin times
+    mscale(factor, mscale) / mscale(factor, mscale_all_dim)."""
+    freqs = rope_frequencies(head_dim, theta, positions.device, scaling)  # (hd/2,)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, hd/2)
-    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        cos, sin = cos * m, sin * m
+    return cos[..., None, :], sin[..., None, :]
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -109,14 +142,16 @@ def plain_attention(
     causal: bool = True,
     q_offset: int = 0,
     window: int | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Reference O(S^2)-materialising attention, fp32 scores.  ``window``
-    (causal only): query i keeps the keys j with i - window < j <= i."""
+    (causal only): query i keeps the keys j with i - window < j <= i.
+    ``scale``: the scores' (None: d^-1/2); v may be narrower than q/k."""
     B, Sq, Hq, d = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Sq, Hkv, G, d)
-    scale = 1.0 / (d ** 0.5)
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32), k.to(torch.float32))
     s = s * scale
     if causal:
@@ -128,7 +163,7 @@ def plain_attention(
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
-    return o.reshape(B, Sq, Hq, d).to(q.dtype)
+    return o.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention(
@@ -140,12 +175,13 @@ def flash_attention(
     q_offset: int = 0,
     p_dtype: torch.dtype = torch.float32,
     window: int | None = None,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Blocked online-softmax attention: the reference's ``lax.scan`` over KV
     blocks as a Python loop.  Never materialises the (Sq, Sk) score matrix.
-    ``window`` as in :func:`plain_attention`."""
+    ``window`` and ``scale`` as in :func:`plain_attention`."""
     B, Sq, Hq, d = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     G = Hq // Hkv
     k = repeat_kv(k, G)
     v = repeat_kv(v, G)
@@ -154,15 +190,15 @@ def flash_attention(
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     n_blocks = k.shape[1] // block_k
-    scale = 1.0 / (d ** 0.5)
+    scale = 1.0 / (d ** 0.5) if scale is None else scale
     qg = (q * scale).transpose(1, 2).to(torch.float32)  # (B, Hq, Sq, d)
     kb = k.reshape(B, n_blocks, block_k, Hq, d).permute(1, 0, 3, 2, 4)
-    vb = v.reshape(B, n_blocks, block_k, Hq, d).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, n_blocks, block_k, Hq, dv).permute(1, 0, 3, 2, 4)
     qpos = torch.arange(Sq, device=q.device) + q_offset
 
     m = torch.full((B, Hq, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     den = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hq, Sq, d), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hq, Sq, dv), dtype=torch.float32, device=q.device)
     for j in range(n_blocks):
         s = torch.einsum("bhqd,bhkd->bhqk", qg, kb[j].to(torch.float32))
         kpos = j * block_k + torch.arange(block_k, device=q.device)

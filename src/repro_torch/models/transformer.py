@@ -82,6 +82,17 @@ Beyond the reference (no twin in the JAX package; k-exaone-236b-a23b):
   would add.  The held experts' products are batched over zero-padded
   slabs of one row count, which the groups' sizes set: they reach the host
   once a layer; ``MOE_PAIRS`` counts the pairs.
+
+Beyond the reference (deepseek-v3):
+
+* **Multi-head latent attention** (``cfg.kv_lora_rank``): such a layer
+  attends through ``models/mla.py``, K4 at q/k 192 and v 128 with MLA's
+  softmax scale, inside the span ``model.mla``; its cache is the latent
+  (``c_kv``, ``k_pe``), and a decode step attends over it in the absorbed
+  form.  RoPE takes the rope dims (``cfg.rope_dim``) and YaRN's scaling
+  (``cfg.rope_scaling``).
+* **Group-limited routing** (``cfg.n_group`` > 1) with a selection-only
+  bias (``router_bias``): DeepSeek-V3's noaux_tc in the dropless layer.
 """
 
 from __future__ import annotations
@@ -99,6 +110,7 @@ from repro_torch.kernels.decode_attn import ops as decode_ops
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.rms_norm import ops as norm_ops
 from repro_torch.models import layers as L
+from repro_torch.models import mla
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import local as local_ops
 from repro_torch.parallel.sharding import (
@@ -196,6 +208,10 @@ def param_specs(cfg: ModelConfig) -> Specs:
         s["w_down"] = ((nl, cfg.d_ff, d), (None, "ffn", "embed"), dt)
     if cfg.family == "vlm":
         s["patch_proj"] = ((d, d), ("embed", "embed_out"), dt)
+    if cfg.kv_lora_rank:  # latent attention's weights in place of wq/wk/wv/wo
+        for name in ("wq", "wk", "wv", "wo"):
+            del s[name]
+        s.update(mla.param_specs(cfg))
     return s
 
 
@@ -237,16 +253,19 @@ def normal_init(gen: torch.Generator, shape, dtype: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attend(q, k, v, causal: bool, plain=L.plain_attention, train: bool = False,
-           window: int | None = None):
+           window: int | None = None, scale: float | None = None):
     """Full-sequence attention: K4 on a CUDA tensor; on the CPU, or with
     ``train`` on any device, ``plain``, the plain version the reference's
     model picks (and trains through); on a DTensor, the same choice on
     each device's shards (``parallel.local``).  ``window``: a sliding
-    window of that many keys (plain tensors only)."""
+    window of that many keys; ``scale``: the scores' (None: d^-1/2) (plain
+    tensors only)."""
     kw = {"window": window} if window else {}
+    if scale is not None:
+        kw["scale"] = scale
     if is_dtensor(q):
-        if window:
-            raise NotImplementedError("sliding-window attention on a DTensor")
+        if kw:
+            raise NotImplementedError("sliding-window or scaled attention on a DTensor")
         return local_ops.attention(plain, q, k, v, causal, train)
     if q.is_cuda and not train:
         return flash_ops.flash_attention(q, k, v, causal=causal, **kw)
@@ -355,12 +374,33 @@ def _moe_combine(y, slot, topv):
     return per_k.sum(2)
 
 
+def _limited_topk(scores, bias, cfg: ModelConfig):
+    """DeepSeek-V3's noaux_tc selection over (T, E) sigmoid scores: the
+    choice scores + ``bias`` (None: none); with ``cfg.n_group`` > 1 each
+    group of E / n_group experts scored by the sum of its two best choice
+    scores and the top-k chosen from the best ``topk_group`` groups only.
+    Returns the chosen experts' unbiased scores and their indices."""
+    choice = scores if bias is None else scores + bias
+    if cfg.n_group > 1:
+        T_, E = choice.shape
+        grouped = choice.view(T_, cfg.n_group, E // cfg.n_group)
+        best = grouped.topk(2, dim=-1)[0].sum(-1).topk(cfg.topk_group, dim=-1)[1]
+        keep = torch.zeros(grouped.shape[:2], dtype=torch.bool, device=choice.device)
+        keep.scatter_(1, best, True)
+        choice = grouped.masked_fill(~keep[..., None], float("-inf")).view(T_, E)
+    topi = torch.topk(choice, cfg.top_k, dim=-1)[1]
+    return scores.gather(1, topi), topi
+
+
 def _moe_dropless(h, lp, cfg: ModelConfig):
     """One card's share of a dropless expert-parallel layer over (B, S, d)
     activations, DeepSeek-V3's router: sigmoid scores of the fp32 router
-    over all ``n_experts``, the top-k of them normalised over their sum +
-    1e-20 and scaled by ``routed_scale``; every pair that picked one of the
-    experts held here (the first ``experts_held``) is computed, weighted in
+    over all ``n_experts``, the top-k of them (chosen by
+    :func:`_limited_topk`: group-limited and biased where the config and
+    the layer ask)
+    normalised over their sum + 1e-20 and scaled by ``routed_scale``; every
+    pair that picked one of the experts held here (the first
+    ``experts_held``) is computed, weighted in
     fp32 and summed into its token; the shared experts are added in the
     model's dtype.  The absent experts' part is left out.
 
@@ -372,7 +412,7 @@ def _moe_dropless(h, lp, cfg: ModelConfig):
     K, H = cfg.top_k, cfg.experts_held
     x = h.reshape(B * S, d)
     logits = torch.matmul(x.to(torch.float32), lp["router"].to(torch.float32))
-    topv, topi = torch.topk(torch.sigmoid(logits), K, dim=-1)
+    topv, topi = _limited_topk(torch.sigmoid(logits), lp.get("router_bias"), cfg)
     w = (topv / (topv.sum(-1, keepdim=True) + 1e-20) * cfg.routed_scale).reshape(-1)
     key = torch.clamp(topi.reshape(-1), max=H)  # H: held elsewhere
     sizes = torch.zeros(H + 1, dtype=torch.int64, device=h.device).index_add_(
@@ -455,7 +495,11 @@ def _mlp(h, lp, cfg: ModelConfig):
 def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False, window=None):
     eps = cfg.rms_norm_eps
     x = act_constrain(x, lm_act_axes(cfg.n_heads))
-    x, kv = _attention_block(x, lp, cfg, rope, plain, train, window)
+    if cfg.kv_lora_rank:
+        with spans.span(SPAN_MLA):
+            x, kv = mla.attention_block(x, lp, cfg, rope, plain, train, norm, attend)
+    else:
+        x, kv = _attention_block(x, lp, cfg, rope, plain, train, window)
     if cfg.post_norm:
         x = norm(_mlp(x, lp, cfg), lp["ln2"], eps, train, residual=x)
     else:
@@ -464,8 +508,11 @@ def _layer(x, lp, cfg: ModelConfig, rope, plain, train: bool = False, window=Non
 
 
 _DENSE_KEYS = ("w_gate", "w_up", "w_down")
-_MOE_KEYS = ("router", "we_gate", "we_up", "we_down", "ws_gate", "ws_up", "ws_down")
-_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "q_norm", "k_norm") + _MOE_KEYS + _DENSE_KEYS
+_MOE_KEYS = ("router", "router_bias", "we_gate", "we_up", "we_down", "ws_gate", "ws_up",
+             "ws_down")
+_MLA_KEYS = ("wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wkv_b")
+_LAYER_KEYS = (("ln1", "ln2", "wq", "wk", "wv", "wo", "q_norm", "k_norm") + _MOE_KEYS + _DENSE_KEYS
+               + _MLA_KEYS)
 
 
 def _split_layer_params(params):
@@ -554,10 +601,11 @@ def _head(x, rest, cfg: ModelConfig, train: bool = False):
 
 # the spans of a full sequence (``repro_torch.spans``): a prefill; its inputs
 # (embeddings, the patches through the ADC frontend, RoPE, the cache); each
-# decoder layer, and inside it each MoE block; the final norm and lm head.
-# ``decode_step`` records none
+# decoder layer, and inside it each latent attention block and each MoE
+# block; the final norm and lm head.  ``decode_step`` records none
 SPAN_PREFILL, SPAN_INPUTS = "model.prefill", "model.inputs"
 SPAN_LAYER, SPAN_HEAD, SPAN_MOE = "model.layer", "model.head", "model.moe"
+SPAN_MLA = "model.mla"
 
 
 def _patches(pe, rest, cfg: ModelConfig, dtype):
@@ -576,10 +624,11 @@ def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: b
         if cfg.family == "vlm" and patch_embeds is not None:
             x = torch.cat([_patches(patch_embeds, rest, cfg, x.dtype), x], dim=1)
         B, S = x.shape[:2]
-        rope = L.rope_angles(torch.arange(S, device=x.device), cfg.hd, cfg.rope_theta)
+        rope = L.rope_angles(torch.arange(S, device=x.device), cfg.rope_dim, cfg.rope_theta,
+                             cfg.rope_scaling)
         plain = _choose_attn(cfg, S)
-        if cfg.window and is_dtensor(x):
-            raise NotImplementedError("sliding-window layers on a DTensor")
+        if (cfg.window or cfg.kv_lora_rank) and is_dtensor(x):
+            raise NotImplementedError("sliding-window or latent attention layers on a DTensor")
         cache = None
         if keep_cache and not is_dtensor(x):
             cache = _prefill_cache(cfg, B, S, x.dtype, x.device)
@@ -596,6 +645,9 @@ def _full_sequence(params, tokens, cfg: ModelConfig, patch_embeds, keep_cache: b
             if keep_cache and win:
                 _ring_fill(cache["k_win"][slot[i]], k)
                 _ring_fill(cache["v_win"][slot[i]], v)
+            elif keep_cache and cfg.kv_lora_rank:  # the latent: c_kv and k_pe
+                states.put(slot[i], c_kv=k, k_pe=v)
+                mla.LATENT_BYTES["prefill"] += k.nbytes + v.nbytes
             elif keep_cache:
                 states.put(slot[i], k=k, v=v)
     with spans.span(SPAN_HEAD):
@@ -628,7 +680,7 @@ def prefill(params, tokens, cfg: ModelConfig, patch_embeds=None):
     Returns (logits (B, P + S, V), cache {k,v: (L, B, P + S, Hkv, hd)}); with
     a sliding window, k/v hold the global layers and k_win/v_win the window
     layers' rings (L_win, B, window, Hkv, hd), holding the last ``window``
-    positions.
+    positions; with latent attention, the latent {c_kv, k_pe} (``mla``).
     """
     return _full_sequence(params, tokens, cfg, patch_embeds, keep_cache=True)
 
@@ -644,6 +696,8 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
         rings, written at ``kv_len % window`` and read over
         ``min(kv_len + 1, window)`` slots.
       kv_len: (B,) int32 current lengths (same for all layers).
+    With latent attention the cache is {"c_kv", "k_pe"} (``mla.cache_specs``),
+    attended in the absorbed form.
     Returns: (logits (B, V), the same cache dict).  A DTensor cache (a plan
     traced on a mesh) is rebuilt as the reference does, by its where-update,
     and returned as a new dict.
@@ -651,23 +705,29 @@ def decode_step(params, token, cache, kv_len, cfg: ModelConfig):
     stacked, rest = _split_layer_params(params)
     B = token.shape[0]
     hd, Hq, Hkv, eps, W = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.rms_norm_eps, cfg.window
-    Smax = cache["k"].shape[2]
+    first = cache["c_kv" if cfg.kv_lora_rank else "k"]
+    Smax = first.shape[2]
     x = act_constrain(L.embed(rest["embed"], token), ("batch", None))  # (B, d)
-    if W and is_dtensor(cache["k"]):
-        raise NotImplementedError("sliding-window layers on a DTensor")
-    states = StateWriter(cache, is_dtensor(cache["k"]))
+    if (W or cfg.kv_lora_rank) and is_dtensor(first):
+        raise NotImplementedError("sliding-window or latent attention layers on a DTensor")
+    states = StateWriter(cache, is_dtensor(first))
     pos = kv_len
     rows = torch.arange(B, device=x.device)
     # the reference's where-update writes nothing for a row at or past Smax
     inside = (pos < Smax)[:, None, None]
     at = pos.clamp(max=Smax - 1)
     attn_len = pos + 1
-    cos, sin = L.rope_angles(pos[:, None], hd, cfg.rope_theta)
+    cos, sin = L.rope_angles(pos[:, None], cfg.rope_dim, cfg.rope_theta, cfg.rope_scaling)
     slot = _cache_slots(cfg)
     for i in range(cfg.n_layers):
         lp = _layer_params(stacked, i, cfg)
         win = cfg.windowed(i)
         x = act_constrain(x, ("batch", None))
+        if cfg.kv_lora_rank:  # pre-norm layers attending over their latent
+            x = x + mla.decode_block(x, lp, cfg, cache, slot[i], rows, at, inside, pos, attn_len,
+                                     cos, sin, norm, cache_write)
+            x = x + _mlp(norm(x, lp["ln2"], eps), lp, cfg)
+            continue
         h = x if cfg.post_norm else norm(x, lp["ln1"], eps)
         # the reference constrains none of these; a DTensor must (act_reshape)
         q = act_reshape(torch.matmul(h, lp["wq"]), (B, Hq, hd), ("batch", "heads", None))
@@ -716,7 +776,10 @@ def cache_write(kc, vc, k, v, rows, at, inside, pos):
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> Specs:
     """k/v (L, batch, max_len, Hkv, hd); with a sliding window, k/v of the
-    global layers and rings k_win/v_win (L_win, batch, window, Hkv, hd)."""
+    global layers and rings k_win/v_win (L_win, batch, window, Hkv, hd);
+    with latent attention, the latent c_kv/k_pe (``mla.cache_specs``)."""
+    if cfg.kv_lora_rank:
+        return mla.cache_specs(cfg, batch, max_len)
     hd, Hkv = cfg.hd, cfg.n_kv_heads
     n_win = sum(map(cfg.windowed, range(cfg.n_layers)))
     shape = (cfg.n_layers - n_win, batch, max_len, Hkv, hd)

@@ -30,7 +30,9 @@ REF = dict(atol=1e-4, rtol=1e-4)
 # values a configuration the JAX package also has must hold
 PORT_ONLY_DEFAULTS = dict(rms_norm_eps=1e-6, window=0, window_pattern="L", post_norm=False,
                           first_dense_layers=0, experts_held=0, routed_scale=1.0,
-                          n_shared_experts=0)
+                          n_shared_experts=0, n_group=1, topk_group=1, q_lora_rank=0,
+                          kv_lora_rank=0, qk_nope_head_dim=0, qk_rope_head_dim=0, v_head_dim=0,
+                          rope_scaling=None)
 SERVE_FIELDS = ("requests", "decode_steps", "tokens_generated", "peak_active",
                 "first_token_step", "finish_step")
 

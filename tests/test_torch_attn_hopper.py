@@ -162,7 +162,7 @@ def test_ptxas_report_flags_serialized_wgmma(tmp_path):
 
 def test_k4_counters_name_both_variants():
     assert set(fa.LAUNCHES) == {"flash_attention", "flash_attention_tc", "flash_attention_fp32",
-                                "flash_attention_window"}
+                                "flash_attention_window", "flash_attention_dv"}
     fa.LAUNCHES["flash_attention_tc"] = 3
     fa.reset_launch_counts()
     assert set(fa.LAUNCHES.values()) == {0}

@@ -398,7 +398,7 @@ def test_windowed_k4_matches_plain_on_the_card(card, S):
     torch.cuda.synchronize()
     assert {n: fops.LAUNCHES[n] - n0[n] for n in n0} == {
         "flash_attention": 1, "flash_attention_tc": 1, "flash_attention_fp32": 0,
-        "flash_attention_window": 1}
+        "flash_attention_window": 1, "flash_attention_dv": 0}
     want = exaone_moe._attention(q[0].float(), k[0].float(), v[0].float(), 128, "fp32")
     assert float((out[0].float() - want).abs().max()) <= 3e-2
     # a window past every distance is the causal kernel, bit for bit

@@ -90,7 +90,7 @@ def test_kernel_matches_plain_on_the_card(card, case):
     out, same_bits, launches = _twice(q, k, v, causal)
     assert same_bits
     assert launches == {"flash_attention": 2, "flash_attention_tc": 2,
-                        "flash_attention_fp32": 0, "flash_attention_window": 0}
+                        "flash_attention_fp32": 0, "flash_attention_window": 0, "flash_attention_dv": 0}
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     torch.testing.assert_close(out, _plain(q, k, v, causal), **TOL)
 
@@ -103,7 +103,7 @@ def test_window_matches_plain_on_the_card(card, case):
     out, same_bits, launches = _twice(q, k, v, True, W)
     assert same_bits
     assert launches == {"flash_attention": 2, "flash_attention_tc": 2,
-                        "flash_attention_fp32": 0, "flash_attention_window": 2}
+                        "flash_attention_fp32": 0, "flash_attention_window": 2, "flash_attention_dv": 0}
     torch.testing.assert_close(out, _plain(q, k, v, True, W), **TOL)
     if W >= S:  # no key lies past the window: the causal kernel's bits
         causal, _, _ = _twice(q, k, v, True)
